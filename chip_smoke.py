@@ -5,22 +5,36 @@
 Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from whisper_tpu_torch/csrc/ with nvcc (sm_90a);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's widths (V = 51866, T = 448), on float32 logits, on
-     bf16-rounded logits and on logits with planted ties (equal maxima in a
-     row, equal candidates across beams): ids, sources, token buffers and
-     pools exactly, scores within 1e-5; time kernel and plain version on
-     the device (the profiler's kernel records over 100 calls) and per call
-     with the host's work (CUDA events, median of 100 calls);
+     main path's widths. The update kernels (V = 51866, T = 448) on float32
+     logits, on bf16-rounded logits and on logits with planted ties (equal
+     maxima in a row, equal candidates across beams): ids, sources, token
+     buffers and pools exactly, scores within 1e-5. The DTW trace at
+     (252, 1500), (40, 750), (234, 189) and (10, 20) on randn and on
+     integer-valued (tied) costs: trace and path bit for bit. The median
+     filter at 40 heads x 224 rows x 1500 frames, width 7, reflecting at
+     1500 and at 551, on randn and on a coarse grid: exactly equal (widths
+     3, 5 and 13 likewise on 300 rows). Time
+     kernel and plain version on the device (the profiler's kernel records)
+     and per call with the host's work (CUDA events, median of the calls);
+     time `unfold(...).median(-1)` beside the median filter;
   3. check that the graphs' float32 products of bf16 operands (logits,
      attention scores) are summed in float32 on the card and not rounded
      to bf16 (within 1e-4 of the float64 product);
   4. decode greedy and beam 5 at tiny dims in float32 on the card and on
      the CPU with the same seeded weights: equal tokens, avg_logprob within
-     1e-3;
+     1e-3; transcribe() jfk with word timestamps on both: equal words,
+     times within 1e-6 s; and jfk, 8 s of silence, jfk twice with
+     hallucination_silence_threshold=2.0: each window's segments and words
+     as aligned, and the kept segments, equal (times within 1e-6 s);
   5. transcribe() a 60 s clip (tests/data/jfk.flac tiled) at turbo width
-     with seeded random bf16 weights, greedy with the default temperature
-     ladder and beam 5 at temperature 0, and check that each kernel's
-     launch count equals the temperature-0 updates of its mode;
+     with seeded random bf16 weights: greedy with the default temperature
+     ladder, beam 5 at temperature 0, greedy at temperature 0 with word
+     timestamps, and its first 20 s with word timestamps and
+     hallucination_silence_threshold=2.0. Check that the update kernels'
+     launch counts equal the temperature-0 updates of their mode, that the
+     DTW and median kernels launch once per aligned window, and that every
+     word is finite, ordered and in its window; print the replay's share of
+     the wall time, and time the cross-K/V each replay computes;
   6. profile one greedy window of decode() at turbo width: wall time,
      device-busy time and the host's blocked read of the `completed` flag,
      per step of the engine's loop;
@@ -29,6 +43,9 @@ Phases (any failure raises and the script exits non-zero):
 Exits non-zero, printing no result, where CUDA is not available.
 """
 
+import contextlib
+import copy
+import importlib
 import json
 import os
 import statistics
@@ -49,6 +66,7 @@ from whisper_tpu_torch.models import graphs  # noqa: E402
 from whisper_tpu_torch.models.params import init_random_params  # noqa: E402
 from whisper_tpu_torch.models.whisper import Whisper  # noqa: E402
 from whisper_tpu_torch.ops import beam_kernel as bk  # noqa: E402
+from whisper_tpu_torch.ops import dtw, median  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -91,24 +109,44 @@ def call_ms(fn, reps=REPS) -> float:
 def device_ms(fn, reps=REPS, kernel=None):
     """Device time per call from the profiler's CUDA kernel records: of the
     kernels whose name contains `kernel`, or of every kernel the call ran.
-    Returns (ms per call, kernels per call)."""
+    Returns (ms per call, kernels per call). The profiler has, in rare runs,
+    kept no record of a short kernel at all; such a profile is taken again,
+    up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and (kernel is None or kernel in e.name):
-            us += e.time_range.elapsed_us()
-            n += 1
-    if n == 0:
-        raise RuntimeError("the profiler recorded no CUDA kernel")
-    return us / reps / 1e3, n / reps
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and (
+                kernel is None or kernel in e.name
+            ):
+                us += e.time_range.elapsed_us()
+                n += 1
+        if n:
+            return us / reps / 1e3, n / reps
+        log(json.dumps({"phase": "profiler_empty", "kernel": kernel, "attempt": attempt}))
+    raise RuntimeError("the profiler recorded no CUDA kernel in three profiles")
+
+
+def kernel_ms(fn, wrapper, name, reps=REPS):
+    """Device ms per launch of the kernel `name`: the mean of the profiler's
+    records of it (the profiler may drop a few records of a short kernel),
+    after checking on the wrapper's count that each call launches it once."""
+    before = wrapper.launches
+    fn()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{name}: {wrapper.launches - before} launches per call")
+    per_call_ms, per_call = device_ms(fn, reps, kernel=name)
+    if not 0 < per_call <= 1:
+        raise AssertionError(f"{name}: the profiler saw {per_call} launches per call")
+    return per_call_ms / per_call
 
 
 # ---- phase 2: kernels vs plain versions --------------------------------------
@@ -184,14 +222,12 @@ def check_greedy():
     nbytes = 4 * (V + V + n_hist) + 8  # logits, suppress, history; tok + lp
     return timings(
         lambda: bk.greedy_argmax(*args, **kw), lambda: bk.greedy_argmax_plain(*args, **kw),
-        "greedy_argmax_kernel", err, nbytes,
+        bk.greedy_argmax, "greedy_argmax_kernel", err, nbytes,
     )  # fmt: skip
 
 
-def timings(kernel_fn, plain_fn, kernel_name, err, nbytes):
-    ms, per_call = device_ms(kernel_fn, kernel=kernel_name)
-    if per_call != 1:
-        raise AssertionError(f"{kernel_name}: {per_call} launches per call")
+def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes):
+    ms = kernel_ms(kernel_fn, wrapper, kernel_name)
     plain_ms, plain_kernels = device_ms(plain_fn)
     return dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -286,7 +322,90 @@ def check_beam():
     return timings(
         lambda: bk.beam_update(*head, *pool, *tail, **kw),
         lambda: bk.beam_update_plain(*head, *pool, *tail, **kw),
-        "beam_update_kernel", err, nbytes,
+        bk.beam_update, "beam_update_kernel", err, nbytes,
+    )  # fmt: skip
+
+
+# ---- phase 2b: the word-timing kernels vs plain versions -------------------
+
+
+KDTW, KMEDIAN = "dtw_trace_kernel", "median_filter_kernel"
+
+
+def dtw_case(N, M, tied, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-3, 4, size=(N, M)) if tied else rng.randn(N, M)
+    return torch.from_numpy(x.astype(np.float32)).to(DEV)
+
+
+def check_dtw():
+    """Trace tables and backtraced paths equal, bit for bit, on randn and
+    on integer-valued (tied) costs; device ms per shape; plain and per-call
+    times at the main path's largest shape (N = 252 tokens, M = 1500)."""
+    shapes = [(252, 1500), (40, 750), (234, 189), (10, 20)]
+    per_shape = {}
+    for seed, (N, M) in enumerate(shapes):
+        for tied in (False, True):
+            x = dtw_case(N, M, tied, seed)
+            k, p = dtw.dtw_trace(x), dtw.dtw_trace_plain(x)
+            torch.cuda.synchronize()
+            if k.dtype != torch.int8 or not torch.equal(k, p):
+                raise AssertionError(f"dtw_trace differs from plain at {(N, M)}, tied={tied}")
+            kp, pp = dtw.backtrace(k.cpu().numpy()), dtw.backtrace(p.cpu().numpy())
+            if not np.array_equal(kp, pp):
+                raise AssertionError(f"dtw paths differ at {(N, M)}, tied={tied}")
+        per_shape[f"{N}x{M}"] = kernel_ms(lambda: dtw.dtw_trace(x), dtw.dtw_trace, KDTW, 20)
+    N, M = shapes[0]
+    x = dtw_case(N, M, False, 0)
+    ms = kernel_ms(lambda: dtw.dtw_trace(x), dtw.dtw_trace, KDTW, 20)
+    nbytes = 4 * N * M + (N + 1) * (M + 1)  # x read once, the int8 trace written once
+    return dict(
+        max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: dtw.dtw_trace_plain(x), reps=2)[0],
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, call_ms=call_ms(lambda: dtw.dtw_trace(x), 20),
+        plain_call_ms=call_ms(lambda: dtw.dtw_trace_plain(x), 2), bytes=nbytes,
+        barriers=N + M - 1, device_ms_per_shape=per_shape, library_ms=None,
+    )  # fmt: skip
+
+
+def check_median():
+    """Exactly equal on the valid columns (and the copied ones past them),
+    at 40 heads x 224 rows x 1500 frames, width 7, reflecting at 1500 and
+    at 551, on randn inputs and on inputs on a coarse grid (equal values);
+    widths 3, 5 and 13 likewise on 300 rows."""
+    R, T, W = 40 * 224, 1500, 7
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    base = torch.randn((R, T), generator=gen, device=DEV)
+    for grid in (False, True):
+        x = torch.round(base * 4) / 4 if grid else base
+        for n_valid in (T, 551):
+            k = median.median_filter(x, W, n_valid=n_valid)
+            p = median.median_filter_plain(x, W, n_valid=n_valid)
+            torch.cuda.synchronize()
+            if not torch.equal(k[:, :n_valid], p[:, :n_valid]) or not torch.equal(k, p):
+                raise AssertionError(f"median_filter differs (grid={grid}, n_valid={n_valid})")
+    # the kernel's other widths (the JAX package's test widths), on 300 rows
+    for w in (3, 5, 13):
+        for grid in (False, True):
+            x = torch.round(base[:300] * 4) / 4 if grid else base[:300]
+            for n_valid in (T, 551):
+                k = median.median_filter(x, w, n_valid=n_valid)
+                if not torch.equal(k, median.median_filter_plain(x, w, n_valid=n_valid)):
+                    raise AssertionError(f"median_filter differs (width={w}, grid={grid})")
+    x = base
+    ms = kernel_ms(lambda: median.median_filter(x, W, T), median.median_filter, KMEDIAN)
+    # the one PyTorch call that computes the same values, on the input
+    # reflected beforehand (outside the timed call)
+    padded = torch.nn.functional.pad(x, (W // 2, W // 2), mode="reflect")
+    lib = padded.unfold(-1, W, 1).median(-1).values
+    if not torch.equal(lib, median.median_filter(x, W, T)):
+        raise AssertionError("unfold(...).median(-1) does not compute the filter")
+    nbytes = 2 * 4 * R * T  # x read once, the result written once
+    return dict(
+        max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: median.median_filter_plain(x, W, T))[0],
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        library_ms=device_ms(lambda: padded.unfold(-1, W, 1).median(-1))[0],
+        call_ms=call_ms(lambda: median.median_filter(x, W, T)),
+        plain_call_ms=call_ms(lambda: median.median_filter_plain(x, W, T)), bytes=nbytes,
     )  # fmt: skip
 
 
@@ -352,36 +471,158 @@ def card_vs_cpu():
         if not d < 1e-3:
             raise AssertionError(f"{name}: avg_logprob differs by {d}")
         out[name] = dict(tokens=len(g.tokens), avg_logprob_diff=d)
+    # word timestamps: the same words at the same times on both
+    jfk = load_audio(os.path.join(ROOT, "tests", "data", "jfk.flac"))
+    kw = dict(language="en", temperature=0.0, verbose=None, word_timestamps=True)
+    gw, cw = words_of(gpu.transcribe(jfk, **kw)), words_of(cpu.transcribe(jfk, **kw))
+    if not cw:
+        raise AssertionError("the CPU run of jfk gave no words")
+    out["words"] = dict(words=len(gw), max_time_diff_s=same_words(gw, cw, "jfk"))
+    # the silence pass on jfk, 8 s of silence, jfk twice: the same windows
+    # (seek, tokens and words as aligned, before any cull) and the same
+    # final segments on both
+    audio = np.concatenate([jfk, np.zeros(8 * 16000, np.float32), np.tile(jfk, 2)])
+    kw = dict(kw, hallucination_silence_threshold=2.0)
+    runs = []
+    for model in (gpu, cpu):
+        with watch_replays() as replays:
+            result = model.transcribe(audio, **kw)
+        runs.append((result["segments"], replays))
+    (gsegs, greps), (csegs, creps) = runs
+    if [r["aligned"] for r in greps] != [r["aligned"] for r in creps] or not any(
+        r["aligned"] for r in creps
+    ):
+        raise AssertionError(f"silence pass: {len(greps)} vs {len(creps)} replays, or none aligned")
+    d = 0.0
+    for i, (g, c) in enumerate(zip(greps + [dict(segments=gsegs)], creps + [dict(segments=csegs)])):
+        if [(s["seek"], s["tokens"]) for s in g["segments"]] != [
+            (s["seek"], s["tokens"]) for s in c["segments"]
+        ]:
+            raise AssertionError(f"silence pass: segments differ at window {i}")
+        for a, b in zip(g["segments"], c["segments"]):
+            d = max(d, abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+        d = max(d, same_words(words_of(g), words_of(c), f"silence pass window {i}"))
+    if not d < 1e-6:
+        raise AssertionError(f"silence pass: segment times differ by {d} s")
+    out["silence_pass"] = dict(
+        windows_aligned=sum(r["aligned"] for r in creps), segments_kept=len(csegs),
+        words_aligned=sum(len(words_of(r)) for r in creps), max_time_diff_s=d,
+    )  # fmt: skip
     return out
+
+
+def words_of(result):
+    return [w for s in result["segments"] for w in s.get("words", [])]
+
+
+def same_words(gw, cw, what) -> float:
+    """Equal words, times within 1e-6 s; returns the largest time difference."""
+    if [w["word"] for w in gw] != [w["word"] for w in cw]:
+        raise AssertionError(f"{what}: words differ: card {gw} CPU {cw}")
+    d = max(
+        (max(abs(a["start"] - b["start"]), abs(a["end"] - b["end"])) for a, b in zip(gw, cw)),
+        default=0.0,
+    )
+    if not d < 1e-6:
+        raise AssertionError(f"{what}: word times differ by {d} s")
+    return d
 
 
 # ---- phase 5: the main path at turbo width ----------------------------------
 
 
+@contextlib.contextmanager
+def watch_replays():
+    """Within the block, log each word-timestamp replay of transcribe() (one
+    add_word_timestamps call per window): its segments and words as aligned
+    (copied before the silence pass may cull them), whether it had text
+    tokens to align (then it launches median_filter and dtw_trace once), and
+    its host-clock seconds. No synchronize is added: the replay ends in its
+    own blocking read of the DTW trace. The function is restored on exit."""
+    tmod = importlib.import_module("whisper_tpu_torch.transcribe")
+    add_words = tmod.add_word_timestamps
+    replays = []
+
+    def watched(**kw):
+        t0 = time.perf_counter()
+        add_words(**kw)
+        seconds = time.perf_counter() - t0
+        eot = kw["tokenizer"].eot
+        replays.append(dict(
+            seconds=seconds,
+            aligned=any(t < eot for s in kw["segments"] for t in s["tokens"]),
+            segments=copy.deepcopy(kw["segments"]),
+        ))  # fmt: skip
+
+    tmod.add_word_timestamps = watched
+    try:
+        yield replays
+    finally:
+        tmod.add_word_timestamps = add_words
+
+
+def reset_launch_counts():
+    bk.reset_launch_counts()
+    dtw.dtw_trace.launches = 0
+    median.median_filter.launches = 0
+
+
+def launch_counts():
+    return {
+        "greedy_argmax": bk.greedy_argmax.launches, "beam_update": bk.beam_update.launches,
+        "dtw_trace": dtw.dtw_trace.launches, "median_filter": median.median_filter.launches,
+    }  # fmt: skip
+
+
+def check_words(segs, audio_s):
+    """Every word's times are finite and ordered, starts do not decrease
+    within a segment, and each word lies in its window [t0, t0 + 30 s]; the
+    clamp heuristics may move an edge word's start back by up to the 1.4 s
+    cap and its end on by up to the 0.7 s typical span."""
+    n = 0
+    for s in segs:
+        t0 = s["seek"] / 100
+        starts = [w["start"] for w in s["words"]]
+        if starts != sorted(starts):
+            raise AssertionError(f"word starts decrease in segment {s['id']}")
+        for w in s["words"]:
+            if not (np.isfinite([w["start"], w["end"], w["probability"]]).all()
+                    and t0 - 1.4 - 1e-6 <= w["start"] <= w["end"] <= t0 + 30.7 + 1e-6
+                    and w["end"] <= audio_s + 30.7):  # fmt: skip
+                raise AssertionError(f"word {w} out of its window at {t0} s")
+            n += 1
+    return n
+
+
 def main_path(model, audio, **kw):
     if model._fused_engine is not None:
         model._fused_engine.history.clear()
-    bk.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = model.transcribe(audio, language="en", verbose=None, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"greedy_argmax": bk.greedy_argmax.launches, "beam_update": bk.beam_update.launches}
+    with watch_replays() as replays:
+        t0 = time.perf_counter()
+        result = model.transcribe(audio, language="en", verbose=None, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
     runs = list(model._fused_engine.history)
     t0_greedy = sum(r[2] for r in runs if not r[0] and r[1] == 0.0)
     t0_beam = sum(r[2] for r in runs if r[0] and r[1] == 0.0)
-    if launches != {"greedy_argmax": t0_greedy, "beam_update": t0_beam}:
-        raise AssertionError(f"launches {launches} != T=0 updates {(t0_greedy, t0_beam)}")
+    aligned = sum(r["aligned"] for r in replays)
+    replay_s = sum(r["seconds"] for r in replays)
+    want = {"greedy_argmax": t0_greedy, "beam_update": t0_beam, "dtw_trace": aligned,
+            "median_filter": aligned}  # fmt: skip
+    if launches != want:
+        raise AssertionError(f"launches {launches} != T=0 updates and aligned windows {want}")
     segs = result["segments"]
     values = [v for s in segs for v in (s["start"], s["end"], s["avg_logprob"])]
-    if not segs or not np.isfinite(values).all():
+    if not np.isfinite(values).all() or (not segs and "hallucination_silence_threshold" not in kw):
         raise AssertionError("transcribe() returned no or non-finite segments")
-    if segs[-1]["end"] > len(audio) / 16000 + 30:
+    if segs and segs[-1]["end"] > len(audio) / 16000 + 30:
         raise AssertionError("segments end past the clip")
     steps = sum(r[2] for r in runs)
     decode_s = sum(r[3] for r in runs)
-    return dict(
+    stats = dict(
         wall_s=wall,
         rtfx=len(audio) / 16000 / wall,
         windows_decoded=len(runs),
@@ -390,7 +631,28 @@ def main_path(model, audio, **kw):
         ms_per_token=decode_s / steps * 1e3,
         segments=len(segs),
         temperatures=sorted({r[1] for r in runs}),
-    ), launches
+    )
+    if kw.get("word_timestamps"):
+        if aligned == 0:
+            raise AssertionError("the word-timestamp run aligned no window")
+        stats.update(
+            windows_aligned=aligned, words=check_words(segs, len(audio) / 16000),
+            replay_s=replay_s, replay_share=replay_s / wall,
+        )  # fmt: skip
+    return stats, launches
+
+
+def replay_cross_kv(model):
+    """The cross-K/V that each aligned window's replay computes from the
+    window's audio features (1, 1500, d): device ms (profiler) and ms per
+    call (CUDA events) at the model's width."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    xa = torch.randn((1, 1500, model.dims.n_audio_state), generator=gen, device=DEV)
+    xa = xa.to(model.compute_dtype)
+    return dict(
+        device_ms=device_ms(lambda: model.cross_kv(xa))[0],
+        call_ms=call_ms(lambda: model.cross_kv(xa)),
+    )
 
 
 # ---- phase 6: where a greedy window's time goes ---------------------------
@@ -471,12 +733,16 @@ def main():
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t}))
     log("\n".join(line for line in build.build_log.splitlines() if "Used" in line))
 
-    kernels = {"greedy_argmax": check_greedy(), "beam_update": check_beam()}
+    kernels = {
+        "greedy_argmax": check_greedy(), "beam_update": check_beam(), "dtw_trace": check_dtw(),
+        "median_filter": check_median(),
+    }  # fmt: skip
     log(json.dumps({"phase": "f32_products", **f32_products()}))
     for name, r in kernels.items():
-        log(json.dumps({"phase": "kernel", "name": name, **r}))
+        log(json.dumps({"phase": "kernel", "name": name, **r, "card": card}))
     log(json.dumps({"phase": "yardstick", "library_ms": None,
-                    "note": "no single PyTorch call computes the filtered update"}))  # fmt: skip
+                    "note": "no single PyTorch call computes the filtered update or the "
+                            "DTW trace"}))  # fmt: skip
 
     log(json.dumps({"phase": "card_vs_cpu", **card_vs_cpu()}))
 
@@ -492,8 +758,15 @@ def main():
 
     launches = {}
     np.random.seed(0)  # the sampling seeds of the temperature ladder
-    for name, kw in [("greedy_ladder", {}), ("beam5_t0", dict(beam_size=5, temperature=0.0))]:
-        stats, counts = main_path(model, audio, **kw)
+    words = dict(word_timestamps=True, temperature=0.0)
+    silence = dict(words, hallucination_silence_threshold=2.0)
+    for name, clip, kw in [
+        ("greedy_ladder", audio, {}),
+        ("beam5_t0", audio, dict(beam_size=5, temperature=0.0)),
+        ("words_greedy_t0", audio, words),
+        ("words_silence_skip", audio[: 20 * 16000], silence),
+    ]:  # fmt: skip
+        stats, counts = main_path(model, clip, **kw)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         log(json.dumps({"phase": "main_path", "run": name, **stats, "launches": counts,
@@ -502,11 +775,14 @@ def main():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     log(json.dumps({"phase": "loop_profile", **decode_loop_profile(model, audio), "card": card}))
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "beam_update": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
+        "dtw_trace": ("dtw.cu", "whisper_tpu/ops/pallas_kernels.py:138"),
+        "median_filter": ("median_filter.cu", "whisper_tpu/ops/pallas_kernels.py:210"),
     }  # fmt: skip
     line = {
         "kernels": [
@@ -514,7 +790,7 @@ def main():
                 "name": name, "route": "cuda", "source": "whisper_tpu_torch/csrc/" + source[name][0],
                 "replaces": source[name][1], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r.get("library_ms"),
             }  # fmt: skip
             for name, r in kernels.items()
         ]

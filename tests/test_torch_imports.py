@@ -29,6 +29,7 @@ def test_import_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import whisper_tpu_torch, whisper_tpu_torch.engine, whisper_tpu_torch.ops.beam_kernel\n"
+        "import whisper_tpu_torch.timing, whisper_tpu_torch.ops.dtw, whisper_tpu_torch.ops.median\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

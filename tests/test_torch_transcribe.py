@@ -58,10 +58,3 @@ def test_long_form_runs_the_fallback_ladder(torch_model, jfk_audio):
     res = torch_model.transcribe(np.tile(jfk_audio, 3), language="en", verbose=None)
     assert res["segments"] and res["segments"][-1]["end"] > 30.0
     assert all(s["start"] <= s["end"] for s in res["segments"])
-
-
-def test_unported_options_raise(torch_model, jfk_audio):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_model.transcribe(jfk_audio, word_timestamps=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_model.transcribe(jfk_audio, hallucination_silence_threshold=2.0)

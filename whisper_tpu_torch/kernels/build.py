@@ -17,7 +17,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("greedy_argmax.cu", "beam_update.cu")
+SOURCES = ("greedy_argmax.cu", "beam_update.cu", "dtw.cu", "median_filter.cu")
 HEADERS = ("update_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,6 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wtt_greedy_argmax": [_P] * 6 + [_I] * 8 + [_P],
     "wtt_beam_update": [_P] * 12 + [_I] * 11 + [_P],
+    "wtt_dtw_trace": [_P] * 2 + [_I] * 2 + [_P],
+    "wtt_median_filter": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 

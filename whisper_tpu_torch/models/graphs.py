@@ -6,6 +6,8 @@ layouts, so that the tests compare like with like:
   encode      mel (B, n_mels, 3000)            -> xa (B, 1500, d)
   cross_kv    xa                               -> cK/cV (L, B, H, dh, 1500)
   prefill     tokens (B, P) + cross K/V        -> hidden (B, P, d), kv (L, 2, B, P, d)
+  prefill_with_alignment                       -> ... + align scores (n_heads_sel, P, 1500)
+  alignment_outputs  the word-timing replay    -> text_probs (P,), cost matrix (P, 1500)
   decode_step token (B,) + KV cache (L, 2, B, 448, d) -> logits (B, V) f32, cache
 
 LayerNorm epsilons are 1e-7 in the audio encoder and 1e-5 in the text
@@ -20,6 +22,8 @@ gather over the occupied slots.
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.median import median_filter
 
 CACHE_SLOTS = 448  # n_text_ctx; fixed self-attention cache length
 PREFILL_LEN = 256  # longest first pass (224 prompt + 3 sot + margin)
@@ -117,9 +121,11 @@ def cross_kv(dec, xa, *, n_head):
     return ck, cv
 
 
-def _cross_attention(x, blk, ck_l, cv_l, n_head):
+def _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=False):
     """x: (B, T, d); ck_l/cv_l: (Bc, H, dh, Tk) with B % Bc == 0 — each
-    audio's K/V serves the B // Bc query rows of its group."""
+    audio's K/V serves the B // Bc query rows of its group. With
+    return_scores, also the float32 scores before the softmax, (Bc, H,
+    g*T, Tk)."""
     B, T, d = x.shape
     dh = d // n_head
     Bc = ck_l.shape[0]
@@ -128,10 +134,12 @@ def _cross_attention(x, blk, ck_l, cv_l, n_head):
     q = (h @ blk["cross_q_w"] + blk["cross_q_b"]) * (dh**-0.5)
     # (Bc, H, g*T, dh): the group's query rows share one K/V
     qh = q.view(Bc, g * T, n_head, dh).transpose(1, 2)
-    w = _softmax_f32(matmul_f32(qh, ck_l), x.dtype)  # (Bc, H, g*T, Tk)
+    scores = matmul_f32(qh, ck_l)  # (Bc, H, g*T, Tk)
+    w = _softmax_f32(scores, x.dtype)
     out = w @ cv_l.transpose(-1, -2)  # (Bc, H, g*T, dh)
     out = out.transpose(1, 2).reshape(B, T, d)
-    return out @ blk["cross_o_w"] + blk["cross_o_b"]
+    attn = out @ blk["cross_o_w"] + blk["cross_o_b"]
+    return (attn, scores) if return_scores else attn
 
 
 def _mlp(x, blk):
@@ -140,13 +148,9 @@ def _mlp(x, blk):
     return h @ blk["mlp_fc2_w"] + blk["mlp_fc2_b"]
 
 
-def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
-    """First decoder pass over a token block.
-
-    tokens: (B, P) int, contents beyond n_valid arbitrary; ck/cv: (L, B, H,
-    dh, 1500). Returns (hidden (B, P, d) final-LN'd, kv (L, 2, B, P, d)).
-    Key positions >= n_valid are masked for every query; query rows >=
-    n_valid are garbage that callers must not read."""
+def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
+    """The prefill's layers; also collects the float32 cross-attention
+    scores (B, P, Tk) of each (layer, head) in alignment_heads."""
     blocks = dec["blocks"]
     B, P = tokens.shape
     dev = tokens.device
@@ -156,6 +160,11 @@ def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
     allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] < int(n_valid))
     mask = torch.zeros((P, P), device=dev).masked_fill(~allowed, float("-inf"))
 
+    wanted = {}
+    for i, (layer, head) in enumerate(alignment_heads):
+        wanted.setdefault(int(layer), []).append((int(head), i))
+    align = [None] * len(alignment_heads)
+
     kv = []
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
@@ -164,10 +173,84 @@ def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
         k = h @ blk["attn_k_w"]
         v = h @ blk["attn_v_w"] + blk["attn_v_b"]
         x = x + _self_attention(q, k, v, mask, n_head) @ blk["attn_o_w"] + blk["attn_o_b"]
-        x = x + _cross_attention(x, blk, ck[l], cv[l], n_head)
+        if l in wanted:
+            attn, scores = _cross_attention(x, blk, ck[l], cv[l], n_head, return_scores=True)
+            for head, i in wanted[l]:
+                align[i] = scores[:, head]
+        else:
+            attn = _cross_attention(x, blk, ck[l], cv[l], n_head)
+        x = x + attn
         x = x + _mlp(x, blk)
         kv.append(torch.stack([k, v]))
-    return layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5), torch.stack(kv)
+    return layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5), torch.stack(kv), align
+
+
+def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
+    """First decoder pass over a token block.
+
+    tokens: (B, P) int, contents beyond n_valid arbitrary; ck/cv: (L, B, H,
+    dh, 1500). Returns (hidden (B, P, d) final-LN'd, kv (L, 2, B, P, d)).
+    Key positions >= n_valid are masked for every query; query rows >=
+    n_valid are garbage that callers must not read."""
+    hidden, kv, _ = _prefill(dec, tokens, n_valid, ck, cv, n_head, ())
+    return hidden, kv
+
+
+def prefill_with_alignment(dec, tokens, n_valid, ck, cv, *, n_head, alignment_heads):
+    """`prefill` that also returns the cross-attention scores of the given
+    (layer, head) pairs, the rows that word timing aligns on.
+
+    tokens: (1, P). Returns (hidden (1, P, d), kv (L, 2, 1, P, d),
+    align_scores (n_selected, P, 1500) float32, before the softmax)."""
+    if tokens.shape[0] != 1:
+        raise ValueError(f"the alignment replay runs one sequence, got {tokens.shape[0]}")
+    hidden, kv, align = _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads)
+    return hidden, kv, torch.stack(align)[:, 0]
+
+
+def alignment_cost_matrix(align, n_valid, n_frames_half, qk_scale, medfilt_width):
+    """The DTW cost matrix from the raw alignment-head scores: softmax over
+    the valid frames, z-normalisation per head over the n_valid token rows
+    (population std), the median filter along frames reflecting at
+    n_frames_half, and the mean over heads (the counterpart of
+    whisper_tpu/models/graphs.py:_alignment_cost_matrix).
+
+    align: (Hn, P, F) f32. Returns (P, F) f32; rows >= n_valid and columns
+    >= n_frames_half are junk (the columns NaN) that the caller slices off."""
+    _, P, F = align.shape
+    dev = align.device
+    fmask = torch.arange(F, device=dev) < n_frames_half
+    w = align.float() * qk_scale
+    w = w.masked_fill(~fmask, float("-inf"))
+    w = torch.softmax(w, dim=-1)  # invalid frames -> exactly 0
+
+    rmask = (torch.arange(P, device=dev) < n_valid)[None, :, None]
+    mean = torch.where(rmask, w, 0.0).sum(dim=1, keepdim=True) / n_valid
+    var = torch.where(rmask, (w - mean) ** 2, 0.0).sum(dim=1, keepdim=True) / n_valid
+    w = (w - mean) / torch.sqrt(var)
+
+    w = median_filter(w.contiguous(), medfilt_width, n_valid=n_frames_half)
+    return w.mean(dim=0)
+
+
+def alignment_outputs(
+    dec, tokens, n_valid, ck, cv, row_ids, n_frames_half, qk_scale, *,
+    n_head, alignment_heads, eot, medfilt_width=7,
+):  # fmt: skip
+    """The word-timestamp replay: teacher-forced prefill with the alignment
+    heads' scores, per-row text probabilities, and the DTW cost matrix.
+
+    row_ids: (P,) int — row i reports the probability of token row_ids[i]
+    over the text vocabulary. Returns (text_probs (P,) f32, matrix (P, F)
+    f32)."""
+    hidden, _, align = prefill_with_alignment(
+        dec, tokens, n_valid, ck, cv, n_head=n_head, alignment_heads=alignment_heads
+    )
+    logits = hidden_to_logits(dec, hidden[0])[:, :eot]
+    probs = torch.softmax(logits, dim=-1)
+    text_probs = probs.gather(1, row_ids.long()[:, None])[:, 0]
+    matrix = alignment_cost_matrix(align, n_valid, n_frames_half, qk_scale, medfilt_width)
+    return text_probs, matrix
 
 
 def hidden_to_logits(dec, hidden):

@@ -1,8 +1,11 @@
 """The user-facing Whisper model: dimensions, parameters on one device, and
 the graph entry points (the counterpart of whisper_tpu/models/whisper.py)."""
 
-from typing import Dict, Optional
+import base64
+import gzip
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,6 +47,12 @@ class Whisper(nn.Module):
         self.params = cast_params(params, compute_dtype, self.device)
         for path, t in _flatten(self.params):
             self.register_buffer(path.replace("/", "__"), t, persistent=True)
+        # word timing aligns on these cross-attention heads; the default is
+        # every head of the upper half of the decoder's layers
+        half = dims.n_text_layer // 2
+        self.alignment_heads: List[Tuple[int, int]] = [
+            (l, h) for l in range(half, dims.n_text_layer) for h in range(dims.n_text_head)
+        ]
 
     # ---- graph entry points -------------------------------------------------
 
@@ -88,6 +97,27 @@ class Whisper(nn.Module):
         )  # fmt: skip
 
     @torch.inference_mode()
+    def alignment_replay(
+        self, tokens, n_valid, ck, cv, row_ids, n_frames: int, eot: int,
+        qk_scale: float = 1.0, medfilt_width: int = 7,
+    ):  # fmt: skip
+        """The word-timestamp replay of one token sequence (1, n): prefill
+        with the alignment heads' scores, token probabilities and the DTW
+        cost matrix (graphs.alignment_outputs). Returns tensors on the
+        model's device: text_probs (n,), matrix (n, 1500)."""
+        tokens = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+        if tokens.shape[1] > graphs.PREFILL_LEN:
+            raise ValueError(
+                f"replay length {tokens.shape[1]} exceeds prefill window {graphs.PREFILL_LEN}"
+            )
+        return graphs.alignment_outputs(
+            self.params["decoder"], tokens, n_valid, ck, cv,
+            torch.as_tensor(row_ids, device=self.device), n_frames // 2, qk_scale,
+            n_head=self.dims.n_text_head, alignment_heads=tuple(self.alignment_heads),
+            eot=eot, medfilt_width=medfilt_width,
+        )  # fmt: skip
+
+    @torch.inference_mode()
     def hidden_to_logits(self, hidden):
         return graphs.hidden_to_logits(self.params["decoder"], hidden)
 
@@ -105,6 +135,13 @@ class Whisper(nn.Module):
     @property
     def num_languages(self) -> int:
         return self.dims.n_vocab - 51765 - int(self.is_multilingual)
+
+    def set_alignment_heads(self, dump: bytes):
+        """Install a published alignment-head mask: base85 + gzip packed
+        bools of shape (n_text_layer, n_text_head)."""
+        array = np.frombuffer(gzip.decompress(base64.b85decode(dump)), dtype=bool)
+        mask = array.reshape(self.dims.n_text_layer, self.dims.n_text_head)
+        self.alignment_heads = [(int(l), int(h)) for l, h in np.argwhere(mask)]
 
     # ---- high-level API ------------------------------------------------------
 

@@ -8,10 +8,13 @@ conditioning with `condition_on_previous_text` / `carry_initial_prompt`,
 is computed on the card and windows are sliced there; on the CPU the host
 numpy mel is used, as the JAX package does off its accelerator.
 
-Word timestamps and the hallucination-silence heuristics belong to a later
-part of the port and raise NotImplementedError.
+With `word_timestamps`, each window's segments get their words
+(timing.add_word_timestamps), the next window starts at the last word's end,
+and `hallucination_silence_threshold` turns on the silence and anomaly
+heuristics that skip hallucinated text over silence.
 """
 
+import warnings
 from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 
 import numpy as np
@@ -27,11 +30,49 @@ from .audio import (
     pad_or_trim,
 )
 from .decoding import DecodingOptions, DecodingResult
+from .timing import add_word_timestamps
 from .tokenizer import LANGUAGES, get_tokenizer
-from .utils import exact_div, format_timestamp, make_safe
+from .utils import exact_div, format_timestamp, get_end, make_safe
 
 if TYPE_CHECKING:
     from .models.whisper import Whisper
+
+_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
+
+# anomaly-score constants (copied from whisper_tpu/transcribe.py:49-58): a
+# word scores for being improbable, too brief or too drawn out
+_ANOMALY_MIN_PROB = 0.15
+_ANOMALY_SHORT_S = 0.133
+_ANOMALY_SHORT_RATE = 15.0
+_ANOMALY_LONG_S = 2.0
+_ANOMALY_SCORE_LIMIT = 3.0
+_ANOMALY_HEAD_WORDS = 8
+
+
+def _word_anomaly_score(word: dict) -> float:
+    """Penalty for one word: improbable, too brief, or too drawn out."""
+    length_s = word["end"] - word["start"]
+    penalty = 1.0 if word.get("probability", 0.0) < _ANOMALY_MIN_PROB else 0.0
+    if length_s < _ANOMALY_SHORT_S:
+        penalty += _ANOMALY_SHORT_RATE * (_ANOMALY_SHORT_S - length_s)
+    if length_s > _ANOMALY_LONG_S:
+        penalty += length_s - _ANOMALY_LONG_S
+    return penalty
+
+
+def _is_segment_anomaly(segment: Optional[dict]) -> bool:
+    """A segment is anomalous when its leading non-punctuation words score
+    past the absolute limit or average about one penalty point a word."""
+    if segment is None or not segment["words"]:
+        return False
+    scored = [w for w in segment["words"] if w["word"] not in _PUNCTUATION]
+    scored = scored[:_ANOMALY_HEAD_WORDS]
+    total = sum(_word_anomaly_score(w) for w in scored)
+    return total >= _ANOMALY_SCORE_LIMIT or total + 0.01 >= len(scored)
+
+
+def _next_words_segment(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s["words"]), None)
 
 
 def segments_from_tokens(
@@ -125,6 +166,76 @@ def _quality_gates_failed(
     return too_repetitive or too_unlikely
 
 
+def _silence_skip_pass(
+    *,
+    window_segments: List[dict],
+    seek: int,
+    seek_before: int,
+    window_frames: int,
+    window_t0: float,
+    window_t1: float,
+    window_seconds: float,
+    content_frames: int,
+    content_duration: float,
+    threshold: float,
+    lone_final_ts: bool,
+    hal_last_end: float,
+) -> Tuple[int, bool]:
+    """The hallucination/silence seek heuristics (copied from
+    whisper_tpu/transcribe.py:217-286), applied once the words exist. May
+    trim `window_segments` in place. Returns (seek, restart_window): with
+    restart_window the caller decodes again from the returned seek and
+    emits nothing (the leading-silence skip)."""
+    # trailing silence: if speech ended well before the window does, resume
+    # right after it; otherwise consume the window as decoded
+    if not lone_final_ts:
+        spoken_until = get_end(window_segments)
+        if spoken_until is not None and spoken_until > window_t0:
+            if window_t1 - spoken_until > threshold:
+                seek = round(spoken_until * FRAMES_PER_SECOND)
+            else:
+                seek = seek_before + window_frames
+
+    # leading silence: an anomalous first segment after a gap is likely a
+    # hallucination over silence; jump the gap and decode again
+    opener = _next_words_segment(window_segments)
+    if opener is not None and _is_segment_anomaly(opener):
+        gap_s = opener["start"] - window_t0
+        if gap_s > threshold:
+            return seek_before + round(gap_s * FRAMES_PER_SECOND), True
+
+    # interior: drop an anomalous segment that silence (or more anomalies)
+    # surrounds, and resume just before it
+    for idx, seg in enumerate(window_segments):
+        if not seg["words"]:
+            continue
+        if _is_segment_anomaly(seg):
+            follower = _next_words_segment(window_segments[idx + 1 :])
+            follower_start = (
+                follower["words"][0]["start"]
+                if follower is not None
+                else window_t0 + window_seconds
+            )
+            quiet_before = (
+                seg["start"] - hal_last_end > threshold
+                or seg["start"] < threshold
+                or seg["start"] - window_t0 < 2.0
+            )
+            quiet_after = (
+                follower_start - seg["end"] > threshold
+                or _is_segment_anomaly(follower)
+                or window_t1 - seg["end"] < 2.0
+            )
+            if quiet_before and quiet_after:
+                seek = round(max(window_t0 + 1, seg["start"]) * FRAMES_PER_SECOND)
+                if content_duration - seg["end"] < threshold:
+                    seek = content_frames
+                del window_segments[idx:]
+                break
+        hal_last_end = seg["end"]
+    return seek, False
+
+
 def transcribe(
     model: "Whisper",
     audio: Union[str, np.ndarray],
@@ -138,17 +249,16 @@ def transcribe(
     initial_prompt: Optional[str] = None,
     carry_initial_prompt: bool = False,
     word_timestamps: bool = False,
+    prepend_punctuations: str = "\"'“¿([{-",
+    append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
     clip_timestamps: Union[str, List[float]] = "0",
     hallucination_silence_threshold: Optional[float] = None,
     **decode_options,
 ) -> dict:
     """Transcribe audio (path or 16 kHz waveform). Returns a dict with
-    "text", "segments" and "language"."""
-    if word_timestamps:
-        raise NotImplementedError("word_timestamps is not yet ported")
-    if hallucination_silence_threshold is not None:
-        raise NotImplementedError("hallucination_silence_threshold is not yet ported")
-
+    "text", "segments" (with "words" when word_timestamps=True) and
+    "language". hallucination_silence_threshold takes effect only with
+    word_timestamps."""
     if isinstance(audio, str):
         audio = load_audio(audio)
     audio = np.asarray(audio, dtype=np.float32)
@@ -168,6 +278,8 @@ def transcribe(
         def mel_window(seek: int, window_frames: int):
             sliced = mel[:, seek : seek + window_frames]
             return pad_or_trim(sliced, N_FRAMES).astype(np.float32)
+
+    content_duration = float(content_frames * HOP_LENGTH / SAMPLE_RATE)
 
     if decode_options.get("language", None) is None:
         if not model.is_multilingual:
@@ -199,6 +311,9 @@ def transcribe(
     if len(clip_frames) % 2:
         clip_frames = clip_frames + [content_frames]
     seek_clips: List[Tuple[int, int]] = list(zip(clip_frames[0::2], clip_frames[1::2]))
+
+    if word_timestamps and task == "translate":
+        warnings.warn("Word-level timestamps on translations may not be reliable.")
 
     ladder = [temperature] if isinstance(temperature, (int, float)) else temperature
 
@@ -233,6 +348,7 @@ def transcribe(
         all_tokens.extend(initial_prompt_tokens)
         prompt_budget -= len(initial_prompt_tokens)
 
+    last_speech_timestamp = 0.0
     while clip_idx < len(seek_clips):
         clip_start, clip_end = seek_clips[clip_idx]
         seek = max(seek, clip_start)
@@ -242,6 +358,7 @@ def transcribe(
                 seek = seek_clips[clip_idx][0]
             continue
         window_t0 = float(seek * HOP_LENGTH / SAMPLE_RATE)
+        window_t1 = float((seek + N_FRAMES) * HOP_LENGTH / SAMPLE_RATE)
         window_frames = min(N_FRAMES, content_frames - seek, clip_end - seek)
         window_seconds = window_frames * HOP_LENGTH / SAMPLE_RATE
         window_features = mel_window(seek, window_frames)
@@ -271,7 +388,8 @@ def transcribe(
                 seek += window_frames
                 continue
 
-        window_segments, seek, _ = segments_from_tokens(
+        seek_before = seek
+        window_segments, seek, lone_final_ts = segments_from_tokens(
             tokens=tokens,
             tokenizer=tokenizer,
             result=result,
@@ -282,6 +400,50 @@ def transcribe(
             input_stride=input_stride,
             make_segment=segment_builder(tokenizer, seek),
         )
+
+        if word_timestamps:
+            # the replay attends to the window's audio features
+            ck, cv = model.cross_kv(result.audio_features[None])
+            add_word_timestamps(
+                segments=window_segments,
+                model=model,
+                tokenizer=tokenizer,
+                num_frames=window_frames,
+                ck=ck,
+                cv=cv,
+                prepend_punctuations=prepend_punctuations,
+                append_punctuations=append_punctuations,
+                last_speech_timestamp=last_speech_timestamp,
+            )
+
+            # word-end seek: trust the words over the window's size when the
+            # decode did not end on a lone timestamp
+            if not lone_final_ts:
+                spoken_until = get_end(window_segments)
+                if spoken_until is not None and spoken_until > window_t0:
+                    seek = round(spoken_until * FRAMES_PER_SECOND)
+
+            if hallucination_silence_threshold is not None:
+                seek, restart_window = _silence_skip_pass(
+                    window_segments=window_segments,
+                    seek=seek,
+                    seek_before=seek_before,
+                    window_frames=window_frames,
+                    window_t0=window_t0,
+                    window_t1=window_t1,
+                    window_seconds=window_seconds,
+                    content_frames=content_frames,
+                    content_duration=content_duration,
+                    threshold=hallucination_silence_threshold,
+                    lone_final_ts=lone_final_ts,
+                    hal_last_end=last_speech_timestamp,
+                )
+                if restart_window:
+                    continue
+
+            spoken_until = get_end(window_segments)
+            if spoken_until is not None:
+                last_speech_timestamp = spoken_until
 
         if verbose:
             for seg in window_segments:
