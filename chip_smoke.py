@@ -3,12 +3,23 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the CUDA kernels from whisper_tpu_torch/csrc/ with nvcc (sm_90a);
+  1. build the CUDA kernels from whisper_tpu_torch/csrc/ with nvcc (sm_90a),
+     and beside them the smoke's own empty kernel (smoke/empty_kernel.cu);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's widths. The update kernels (V = 51866, T = 448) on float32
-     logits, on bf16-rounded logits and on logits with planted ties (equal
-     maxima in a row, equal candidates across beams): ids, sources, token
-     buffers and pools exactly, scores within 1e-5. The DTW trace at
+     main path's widths. The update kernels (V = 51866, T = 448), in
+     clusters of the size they use on the card, on float32 logits, on
+     bf16-rounded logits, on logits with planted ties (equal maxima in a
+     row, equal candidates across beams, equal maxima on both sides of
+     every chunk edge), with whole chunks suppressed, and with all but four
+     ids suppressed; greedy at B = 1, 2, 5, 8 and beam at (A, G) = (1, 1),
+     (1, 2), (2, 5), (3, 5), (1, 8), so odd rows too; on inputs that start
+     4 bytes past an 8-byte boundary (offset views: the scalar-load build):
+     ids, sources, token buffers and pools exactly, scores within 1e-5;
+     then 1,000 back-to-back launches alternating two inputs, compared
+     after the last; and the odd-vocabulary build (V = 51865) on randn and
+     edge ties. Each update kernel's device ms and ms per call, beside the
+     device ms of the empty kernel at the same launch shape and at one CTA,
+     and torch.topk(logits, K) on the same rows. The DTW trace at
      (252, 1500), (40, 750), (234, 189) and (10, 20) on randn and on
      integer-valued (tied) costs: trace and path bit for bit. The median
      filter at 40 heads x 224 rows x 1500 frames, width 7, reflecting at
@@ -35,9 +46,10 @@ Phases (any failure raises and the script exits non-zero):
      DTW and median kernels launch once per aligned window, and that every
      word is finite, ordered and in its window; print the replay's share of
      the wall time, and time the cross-K/V each replay computes;
-  6. profile one greedy window of decode() at turbo width: wall time,
-     device-busy time and the host's blocked read of the `completed` flag,
-     per step of the engine's loop;
+  6. profile one greedy window and one beam-5 window of decode() at turbo
+     width: wall time, device-busy time, kernels, the update kernel's
+     device time and the host's blocked read of the `completed` flag, per
+     step of the engine's loop;
   7. print the kernels line, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, where CUDA is not available.
@@ -45,6 +57,7 @@ Exits non-zero, printing no result, where CUDA is not available.
 
 import contextlib
 import copy
+import ctypes
 import importlib
 import json
 import os
@@ -76,6 +89,7 @@ SAMPLE_BEGIN = 3
 SCORE_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 REPS = 100
+EMPTY = {}  # the empty kernel's nvcc process ("nvcc"), then its library ("lib")
 
 
 def log(msg):
@@ -106,18 +120,18 @@ def call_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS, kernel=None):
+def device_ms(fn, reps=REPS, kernel=None, attempts=3):
     """Device time per call from the profiler's CUDA kernel records: of the
     kernels whose name contains `kernel`, or of every kernel the call ran.
     Returns (ms per call, kernels per call). The profiler has, in rare runs,
     kept no record of a short kernel at all; such a profile is taken again,
-    up to three times."""
+    up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -132,7 +146,7 @@ def device_ms(fn, reps=REPS, kernel=None):
         if n:
             return us / reps / 1e3, n / reps
         log(json.dumps({"phase": "profiler_empty", "kernel": kernel, "attempt": attempt}))
-    raise RuntimeError("the profiler recorded no CUDA kernel in three profiles")
+    raise RuntimeError(f"the profiler recorded no CUDA kernel in {attempts} profiles")
 
 
 def kernel_ms(fn, wrapper, name, reps=REPS):
@@ -149,15 +163,108 @@ def kernel_ms(fn, wrapper, name, reps=REPS):
     return per_call_ms / per_call
 
 
+# ---- phase 1: the smoke's own empty kernel ---------------------------------
+
+EMPTY_SRC = os.path.join(ROOT, "smoke", "empty_kernel.cu")
+EMPTY_LIB = os.path.join(ROOT, "smoke", "_build", "empty_kernel.so")
+
+
+def start_empty_build():
+    """Start nvcc on smoke/empty_kernel.cu, to run beside the port's build."""
+    os.makedirs(os.path.dirname(EMPTY_LIB), exist_ok=True)
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", EMPTY_LIB, EMPTY_SRC]
+    EMPTY["nvcc"] = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+
+
+def empty_lib():
+    """The empty kernel's library: waits for the build (started here if it
+    was not started yet) and loads it."""
+    if "lib" not in EMPTY:
+        if "nvcc" not in EMPTY:
+            start_empty_build()
+        proc = EMPTY.pop("nvcc")
+        out = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {EMPTY_SRC}:\n{out}")
+        lib = ctypes.CDLL(EMPTY_LIB)
+        lib.wtt_empty_kernel.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.wtt_empty_kernel.restype = ctypes.c_int
+        EMPTY["lib"] = lib
+    return EMPTY["lib"]
+
+
 # ---- phase 2: kernels vs plain versions --------------------------------------
 
 
-def penalties(use_ts):
+def chunk_edges(C, W=2):
+    """The first ids of chunks 1..C-1 when the kernels split a row of V ids
+    into C chunks (update_common.cuh:chunk_bounds, units of W ids: 2 for
+    float2 loads, 1 for the scalar-load build)."""
+    n = -(-V // C)
+    n += -n % W
+    return [c * n for c in range(1, C) if c * n < V]
+
+
+def offset_view(t):
+    """A copy of `t` as a contiguous view whose data starts 4 bytes past an
+    8-byte boundary: the update kernels must then take their scalar-load
+    build (float2 loads from it would fault)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 8 != 4:
+        raise AssertionError("the offset view is 8-byte aligned")
+    return view
+
+
+def offset_inputs(args, which, logits_at, pens_at):
+    """`args` with the logits (`which` = "logits"), the suppress vector
+    ("suppress") or both and the begin vector ("all") as offset views;
+    `logits_at` and `pens_at` are their positions in `args`."""
+    args = list(args)
+    if which in ("logits", "all"):
+        args[logits_at] = offset_view(args[logits_at])
+    if which in ("suppress", "all"):
+        args[pens_at] = offset_view(args[pens_at])
+    if which == "all":
+        args[pens_at + 1] = offset_view(args[pens_at + 1])
+    return tuple(args)
+
+
+def penalties(use_ts, suppressed=None, allowed=None):
+    """The penalty vectors; `suppressed` ids are also set to -inf, and with
+    `allowed` every other id is."""
     sup, beg = bk.build_penalty_vectors(
         V, [1, 2, 3, 11, 220], [220, EOT], use_timestamps=use_ts, no_timestamps=NO_TS,
         timestamp_begin=TS_BEGIN, max_initial_ts_index=50,
     )  # fmt: skip
+    if suppressed is not None:
+        sup[suppressed] = -np.inf
+    if allowed is not None:
+        keep = sup[allowed]
+        sup[:] = -np.inf
+        sup[allowed] = keep
     return torch.from_numpy(sup).to(DEV), torch.from_numpy(beg).to(DEV)
+
+
+def masks(mode, C, W=2):
+    """Extra suppression for the modes that empty whole stretches of a row:
+    `masked_chunk` suppresses all of chunk 0, the rank-0 CTA's (where a large
+    logit is planted), and chunk 1 too where it ends below EOT (a row with
+    no finite logit is not a state the decoder reaches: the plain version
+    gives NaN there); `sparse` allows four ids only (two text ids in the
+    first and the last chunk, two timestamps), so most of a row's top-K is
+    -inf and most chunks are empty."""
+    edges = chunk_edges(C, W) + [V]
+    if mode == "masked_chunk":
+        hi = edges[1] if len(edges) > 2 and edges[1] < EOT else edges[0]
+        return dict(suppressed=np.arange(0, min(hi, EOT)))
+    if mode == "sparse":
+        last = edges[-2] if C > 1 else 1000
+        return dict(allowed=[7, last + 3, TS_BEGIN + 40, V - 1])
+    return {}
 
 
 def history(rng, rows, n_tokens, step, G):
@@ -178,7 +285,39 @@ def bf16_rounded(logits):
     return torch.from_numpy(logits).bfloat16().float().numpy()
 
 
-def greedy_case(seed, rows, n_tokens, use_ts, mode):
+def plant_edge_ties(logits, C, rows, W=2):
+    """Equal maxima on both sides of every chunk edge e (ids e-1 and e); in
+    odd rows id e-1 of the first edge sits just below them, so the lowest
+    tied id is the first id of chunk 1 and wins over ties further up."""
+    edges = chunk_edges(C, W) or [V // 2]
+    for r in range(rows):
+        top = logits[r].max() + 1.0
+        for e in edges:
+            logits[r, [e - 1, e]] = top
+        if r % 2:
+            logits[r, edges[0] - 1] = top - 1e-3
+
+
+def plant_masked(logits):
+    """A logit far above the rest inside the suppressed chunk 0."""
+    logits[:, 10] += 20.0
+
+
+GREEDY_CASES = [
+    # (rows, n_tokens, use_ts, mode)
+    (1, 3, True, "randn"), (1, 40, True, "randn"), (5, 8, True, "randn"),
+    (5, 12, True, "ts_mass"), (5, 10, False, "randn"), (1, 9, False, "randn"),
+    (1, 3, True, "bf16"), (5, 20, True, "bf16"), (1, 3, True, "ties"),
+    (5, 14, True, "ties"), (5, 9, False, "ties"),
+    # chunk edges, empty chunks, and B = 2 and 8
+    (2, 8, True, "randn"), (8, 12, True, "ts_mass"), (1, 9, False, "edge_ties"),
+    (2, 10, False, "edge_ties"), (5, 14, True, "edge_ties"), (8, 9, False, "edge_ties"),
+    (1, 12, True, "masked_chunk"), (5, 9, False, "masked_chunk"), (2, 9, False, "sparse"),
+    (8, 14, True, "sparse"),
+]  # fmt: skip
+
+
+def greedy_case(seed, rows, n_tokens, use_ts, mode, C, W=2):
     rng = np.random.RandomState(seed)
     tokens = history(rng, rows, n_tokens, 1 if n_tokens > 4 else 0, 1)
     logits = rng.randn(rows, V).astype(np.float32)
@@ -193,46 +332,93 @@ def greedy_case(seed, rows, n_tokens, use_ts, mode):
             ids = rng.choice(np.arange(400, TS_BEGIN), size=3, replace=False)
             logits[r, ids] = logits[r].max() + 1.0
         logits[0, 11] = logits[0].max()
-    args = (torch.from_numpy(logits).to(DEV), tokens, n_tokens, SAMPLE_BEGIN, *penalties(use_ts))
+    elif mode == "edge_ties":
+        plant_edge_ties(logits, C, rows, W)
+    elif mode == "masked_chunk":
+        plant_masked(logits)
+    pens = penalties(use_ts, **masks(mode, C, W))
+    args = (torch.from_numpy(logits).to(DEV), tokens, n_tokens, SAMPLE_BEGIN, *pens)
     kw = dict(use_timestamps=use_ts, eot=EOT, timestamp_begin=TS_BEGIN)
     return args, kw
 
 
+def same_greedy(args, kw, out, what):
+    ptok, plp = bk.greedy_argmax_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tok, lp = out
+    if not torch.equal(tok, ptok):
+        raise AssertionError(f"greedy_argmax ids differ ({what}): {tok.tolist()} {ptok.tolist()}")
+    e = (lp - plp).abs().max().item()
+    if not e <= SCORE_TOL:
+        raise AssertionError(f"greedy_argmax log-prob differs by {e} ({what})")
+    return e
+
+
+# (rows, n_tokens, use_ts, mode, the inputs given as offset views)
+GREEDY_OFFSET_CASES = [
+    (5, 14, True, "randn", "logits"), (5, 9, False, "edge_ties", "suppress"),
+    (2, 3, True, "ties", "all"), (8, 12, True, "masked_chunk", "all"),
+]  # fmt: skip
+
+
 def check_greedy():
-    err = 0.0
-    for seed, (rows, n_tokens, use_ts, mode) in enumerate(
-        [(1, 3, True, "randn"), (1, 40, True, "randn"), (5, 8, True, "randn"),
-         (5, 12, True, "ts_mass"), (5, 10, False, "randn"), (1, 9, False, "randn"),
-         (1, 3, True, "bf16"), (5, 20, True, "bf16"), (1, 3, True, "ties"),
-         (5, 14, True, "ties"), (5, 9, False, "ties")]
-    ):  # fmt: skip
-        args, kw = greedy_case(seed, rows, n_tokens, use_ts, mode)
-        tok, lp = bk.greedy_argmax(*args, **kw)
-        ptok, plp = bk.greedy_argmax_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(tok, ptok):
-            raise AssertionError(f"greedy_argmax ids differ ({mode}, rows={rows}, n_tokens={n_tokens})")
-        e = (lp - plp).abs().max().item()
-        if not e <= SCORE_TOL:
-            raise AssertionError(f"greedy_argmax log-prob differs by {e}")
-        err = max(err, e)
-    # timing at the main path's shape: one row, past the first step
-    args, kw = greedy_case(99, 1, 60, True, "randn")
+    """Every case, then the offset-view cases (scalar-load build); then
+    1,000 back-to-back launches alternating two inputs, compared after the
+    last; then the timings at the main path's shape, one row past the first
+    step."""
+    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+    for seed, case in enumerate(GREEDY_CASES):
+        args, kw = greedy_case(seed, *case, C)
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), f"{case}, C={C}"))
+    for seed, (*case, which) in enumerate(GREEDY_OFFSET_CASES, 50):
+        args, kw = greedy_case(seed, *case, C, W=1)
+        args = offset_inputs(args, which, 0, 4)
+        what = f"{case}, {which} offset, C={C}"
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+    x = greedy_case(101, 5, 14, True, "randn", C)
+    y = greedy_case(102, 5, 14, True, "edge_ties", C)
+    for _ in range(500):
+        out_x = bk.greedy_argmax(*x[0], **x[1])
+        out_y = bk.greedy_argmax(*y[0], **y[1])
+    err = max(err, same_greedy(*x, out_x, "launch 999"), same_greedy(*y, out_y, "launch 1000"))
+    args, kw = greedy_case(99, 1, 60, True, "randn", C)
     n_hist = 60 - SAMPLE_BEGIN + 2
     nbytes = 4 * (V + V + n_hist) + 8  # logits, suppress, history; tok + lp
     return timings(
         lambda: bk.greedy_argmax(*args, **kw), lambda: bk.greedy_argmax_plain(*args, **kw),
-        bk.greedy_argmax, "greedy_argmax_kernel", err, nbytes,
+        bk.greedy_argmax, "greedy_argmax_kernel", err, nbytes, C,
+        lambda: torch.topk(args[0], 1, dim=-1),
     )  # fmt: skip
 
 
-def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes):
-    ms = kernel_ms(kernel_fn, wrapper, kernel_name)
+def empty_ms(grid, cluster):
+    """Device ms of one launch of the empty kernel on `grid` CTAs in
+    clusters of `cluster`: the mean of the profiler's records of it."""
+    lib, stream = empty_lib(), torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.wtt_empty_kernel(grid, cluster, stream)
+        if rc:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+    per_call_ms, per_call = device_ms(launch, kernel="empty_kernel", attempts=6)
+    return per_call_ms / per_call
+
+
+def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes, cluster, topk_fn):
+    """Device ms (profiler) and ms per call (CUDA events) of the kernel,
+    which launches clusters of `cluster` CTAs, with the empty kernel's
+    device ms at the same launch shape and at one CTA, `topk_fn`
+    (torch.topk on the same rows) and the plain version."""
     plain_ms, plain_kernels = device_ms(plain_fn)
+    topk_ms, topk_kernels = device_ms(topk_fn)
     return dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        call_ms=call_ms(kernel_fn), plain_call_ms=call_ms(plain_fn),
-        plain_kernels_per_call=plain_kernels, bytes=nbytes,
+        max_abs_err=err, ms=kernel_ms(kernel_fn, wrapper, kernel_name),
+        call_ms=call_ms(kernel_fn), cluster=cluster, plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, plain_call_ms=call_ms(plain_fn),
+        plain_kernels_per_call=plain_kernels, bytes=nbytes, topk_ms=topk_ms,
+        topk_kernels_per_call=topk_kernels, empty_ms=empty_ms(cluster, cluster),
+        empty_1cta_ms=empty_ms(1, 1),
     )  # fmt: skip
 
 
@@ -254,7 +440,24 @@ def planted_ties(A, G):
     return logits
 
 
-def beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, MC=5):
+BEAM_CASES = [
+    # (A, G, n_tokens, step, use_ts, mode, fcount)
+    (1, 5, 3, 0, True, "randn", 0), (1, 5, 40, 20, True, "randn", 0),
+    (1, 5, 8, 3, True, "eot", 0), (1, 5, 10, 5, False, "eot", 0), (2, 5, 8, 3, True, "eot", 2),
+    (2, 5, 9, 4, True, "eot", 4), (2, 5, 3, 0, False, "randn", 0), (1, 5, 3, 0, True, "bf16", 0),
+    (2, 5, 30, 12, True, "bf16", 0), (1, 5, 3, 0, False, "ties", 0),
+    (1, 5, 12, 6, False, "ties", 0), (2, 5, 12, 6, True, "ties", 1),
+    # (A, G) = (1, 1), (1, 2), (2, 5), (3, 5), (1, 8); chunk edges, empty chunks
+    (1, 1, 9, 4, True, "eot", 0), (1, 1, 3, 0, True, "randn", 0),
+    (1, 2, 12, 6, True, "edge_ties", 0), (1, 2, 3, 0, False, "edge_ties", 0),
+    (2, 5, 12, 6, False, "edge_ties", 0), (2, 5, 9, 4, False, "masked_chunk", 0),
+    (3, 5, 10, 5, True, "eot", 1), (3, 5, 12, 6, True, "sparse", 0),
+    (3, 5, 14, 7, True, "edge_ties", 0), (1, 8, 14, 7, True, "randn", 0),
+    (1, 8, 12, 6, False, "edge_ties", 0), (1, 8, 9, 4, True, "masked_chunk", 0),
+]  # fmt: skip
+
+
+def beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, C, MC=5, W=2):
     rng = np.random.RandomState(seed)
     tokens = history(rng, A * G, n_tokens, step, G)
     logits = rng.randn(A * G, V).astype(np.float32)
@@ -266,6 +469,12 @@ def beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, MC=5):
     elif mode == "ties":
         logits = planted_ties(A, G)
         sum_lp[:] = 0.0  # equal beams give equal candidates
+    elif mode == "edge_ties":
+        logits = np.repeat(logits[::G], G, axis=0)  # equal beams: ties across beams
+        plant_edge_ties(logits, C, A * G, W)
+        sum_lp[:] = 0.0
+    elif mode == "masked_chunk":
+        plant_masked(logits)
     sum_lp = torch.from_numpy(sum_lp).to(DEV)
     pool = [
         torch.zeros((A, MC, T + 1), dtype=torch.int32, device=DEV),
@@ -274,56 +483,132 @@ def beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, MC=5):
         torch.full((A,), fcount, dtype=torch.int32, device=DEV),
     ]
     head = (torch.from_numpy(logits).to(DEV), tokens, sum_lp)
-    tail = (n_tokens, SAMPLE_BEGIN, step, *penalties(use_ts))
+    tail = (n_tokens, SAMPLE_BEGIN, step, *penalties(use_ts, **masks(mode, C, W)))
     kw = dict(n_group=G, use_timestamps=use_ts, eot=EOT, timestamp_begin=TS_BEGIN)
     return head, pool, tail, kw
 
 
+def same_beam(case, k, kpool, what):
+    """The kernel's result `k` and pools `kpool` (from the fresh pools of
+    `case`) against the plain version's; returns the largest score error."""
+    head, pool, tail, kw = case
+    pool = [p.clone() for p in pool]
+    p = bk.beam_update_plain(*head, *pool, *tail, **kw)
+    torch.cuda.synchronize()
+    n = tail[0] + 1
+    same = (
+        torch.equal(k[0][:, :n], p[0][:, :n]) and torch.equal(k[1], p[1])
+        and torch.equal(kpool[0], pool[0]) and torch.equal(kpool[2], pool[2])
+        and torch.equal(kpool[3], pool[3])
+    )  # fmt: skip
+    if not same:
+        raise AssertionError(f"beam_update differs ({what})")
+    finite = torch.isfinite(pool[1])
+    if not torch.equal(finite, torch.isfinite(kpool[1])):
+        raise AssertionError(f"beam_update pool scores differ in which are finite ({what})")
+    if not torch.equal(torch.isfinite(k[2]), torch.isfinite(p[2])):
+        raise AssertionError(f"beam_update scores differ in which are finite ({what})")
+    fin = torch.isfinite(p[2])
+    e = max(
+        (k[2][fin] - p[2][fin]).abs().max().item() if fin.any() else 0.0,
+        (kpool[1][finite] - pool[1][finite]).abs().max().item() if finite.any() else 0.0,
+    )
+    if not e <= SCORE_TOL:
+        raise AssertionError(f"beam_update scores differ by {e} ({what})")
+    return e
+
+
+# (A, G, n_tokens, step, use_ts, mode, fcount, the inputs given as offset views)
+BEAM_OFFSET_CASES = [
+    (2, 5, 12, 6, True, "eot", 1, "logits"), (3, 5, 14, 7, False, "edge_ties", 0, "all"),
+    (1, 2, 3, 0, True, "randn", 0, "suppress"),
+]  # fmt: skip
+
+
 def check_beam():
+    """Every case, then the offset-view cases (scalar-load build); then
+    1,000 back-to-back launches alternating two inputs (neither collects an
+    EOT, so the pools stay as they were), compared after the last; then the
+    timings at the main path's shape: one audio, beam 5, mid-window."""
     err = 0.0
-    for seed, (A, n_tokens, step, use_ts, mode, fcount) in enumerate(
-        [(1, 3, 0, True, "randn", 0), (1, 40, 20, True, "randn", 0), (1, 8, 3, True, "eot", 0),
-         (1, 10, 5, False, "eot", 0), (2, 8, 3, True, "eot", 2), (2, 9, 4, True, "eot", 4),
-         (2, 3, 0, False, "randn", 0), (1, 3, 0, True, "bf16", 0), (2, 30, 12, True, "bf16", 0),
-         (1, 3, 0, False, "ties", 0), (1, 12, 6, False, "ties", 0), (2, 12, 6, True, "ties", 1)]
-    ):  # fmt: skip
-        head, pool, tail, kw = beam_case(seed, A, 5, n_tokens, step, use_ts, mode, fcount)
+    cases = [(*c, None) for c in BEAM_CASES] + BEAM_OFFSET_CASES
+    for seed, (A, G, n_tokens, step, use_ts, mode, fcount, which) in enumerate(cases):
+        C = bk.cluster_sizes(G, V)[1] // G
+        W = 1 if which else 2
+        head, pool, tail, kw = beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, C, W=W)
+        if which:
+            args = offset_inputs(head + tail, which, 0, 6)
+            head, tail = args[:3], args[3:]
+        case = (head, pool, tail, kw)
         kpool = [p.clone() for p in pool]
         k = bk.beam_update(*head, *kpool, *tail, **kw)
-        p = bk.beam_update_plain(*head, *pool, *tail, **kw)
-        torch.cuda.synchronize()
-        n = n_tokens + 1
-        same = (
-            torch.equal(k[0][:, :n], p[0][:, :n]) and torch.equal(k[1], p[1])
-            and torch.equal(kpool[0], pool[0]) and torch.equal(kpool[2], pool[2])
-            and torch.equal(kpool[3], pool[3])
-        )  # fmt: skip
-        if not same:
-            raise AssertionError(
-                f"beam_update differs ({mode}, A={A}, n_tokens={n_tokens}, step={step})"
-            )
-        if mode in ("eot", "ties") and step > 0 and int(pool[3].sum()) <= fcount * A:
-            raise AssertionError("the EOT case put nothing into the pools")
-        finite = torch.isfinite(pool[1])
-        if not torch.equal(finite, torch.isfinite(kpool[1])):
-            raise AssertionError("beam_update pool scores differ in which are finite")
-        e = max(
-            (k[2] - p[2]).abs().max().item(),
-            (kpool[1][finite] - pool[1][finite]).abs().max().item() if finite.any() else 0.0,
-        )
-        if not e <= SCORE_TOL:
-            raise AssertionError(f"beam_update scores differ by {e}")
-        err = max(err, e)
-    # timing at the main path's shape: one audio, beam 5, mid-window
-    head, pool, tail, kw = beam_case(99, 1, 5, 60, 40, True, "randn", 0)
+        what = f"{mode}, A={A}, G={G}, n_tokens={n_tokens}, step={step}, C={C}, offset={which}"
+        err = max(err, same_beam(case, k, kpool, what))
+        if mode in ("eot", "ties") and step > 0 and int(kpool[3].sum()) <= fcount * A:
+            raise AssertionError(f"the EOT case put nothing into the pools ({what})")
+    C = bk.cluster_sizes(5, V)[1] // 5
+    x = beam_case(101, 3, 5, 14, 7, True, "randn", 0, C)
+    y = beam_case(102, 3, 5, 14, 7, True, "edge_ties", 0, C)
+    for case in (x, y):
+        case[0][0][:, EOT] = float("-inf")  # no EOT candidate: the pools stay
+    kx, ky = [p.clone() for p in x[1]], [p.clone() for p in y[1]]
+    for _ in range(500):
+        out_x = bk.beam_update(*x[0], *kx, *x[2], **x[3])
+        out_y = bk.beam_update(*y[0], *ky, *y[2], **y[3])
+    err = max(err, same_beam(x, out_x, kx, "launch 999"), same_beam(y, out_y, ky, "launch 1000"))
+    head, pool, tail, kw = beam_case(99, 1, 5, 60, 40, True, "randn", 0, C)
     G = 5
     # logits, suppress, sum_lp, the source rows read and the new rows written
     nbytes = 4 * (G * V + V + G + 2 * G * T) + 8 * G + 4
     return timings(
         lambda: bk.beam_update(*head, *pool, *tail, **kw),
         lambda: bk.beam_update_plain(*head, *pool, *tail, **kw),
-        bk.beam_update, "beam_update_kernel", err, nbytes,
+        bk.beam_update, "beam_update_kernel", err, nbytes, G * C,
+        lambda: torch.topk(head[0], G + 1, dim=-1),
     )  # fmt: skip
+
+
+def check_odd_vocab():
+    """The update kernels' scalar-load build (an odd V: a row of float32
+    logits is then 4-byte aligned at odd rows) at the pre-v3 multilingual
+    vocabulary (V = 51865, timestamps from 50364), on randn logits and on
+    equal maxima on both sides of every greedy and beam chunk edge: greedy
+    at B = 5, beam at (A, G) = (2, 5) with EOT candidates. Returns the
+    largest score error."""
+    Vo, ts_begin, A, G, n_tokens = 51865, 50364, 2, 5, 12
+    sup, beg = bk.build_penalty_vectors(
+        Vo, [1, 2, 3, 11, 220], [220, EOT], use_timestamps=True, no_timestamps=ts_begin - 1,
+        timestamp_begin=ts_begin, max_initial_ts_index=50,
+    )  # fmt: skip
+    pens = (torch.from_numpy(sup).to(DEV), torch.from_numpy(beg).to(DEV))
+    kw = dict(use_timestamps=True, eot=EOT, timestamp_begin=ts_begin)
+    rng, err = np.random.RandomState(17), 0.0
+    for mode in ("randn", "edge_ties"):
+        logits = rng.randn(A * G, Vo).astype(np.float32)
+        if mode == "edge_ties":
+            for C in (bk.cluster_sizes(G, Vo)[0], bk.cluster_sizes(G, Vo)[1] // G):
+                n = -(-Vo // C)
+                for e in range(n, Vo, n):
+                    logits[:, [e - 1, e]] = 14.0
+        logits[G:, EOT] = 20.0  # above the ties: audio 1 collects EOT candidates
+        tokens = history(rng, A * G, n_tokens, 6, G)
+        lg = torch.from_numpy(logits).to(DEV)
+        args = (lg[:G], tokens[:G], n_tokens, SAMPLE_BEGIN, *pens)
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), f"V={Vo}, {mode}"))
+        sum_lp = torch.from_numpy(rng.randn(A * G).astype(np.float32)).to(DEV)
+        pool = [
+            torch.zeros((A, 5, T + 1), dtype=torch.int32, device=DEV),
+            torch.full((A, 5), float("-inf"), device=DEV),
+            torch.zeros((A, 5), dtype=torch.int32, device=DEV),
+            torch.zeros((A,), dtype=torch.int32, device=DEV),
+        ]
+        case = ((lg, tokens, sum_lp), pool, (n_tokens, SAMPLE_BEGIN, 6, *pens), dict(kw, n_group=G))
+        kpool = [p.clone() for p in pool]
+        k = bk.beam_update(*case[0], *kpool, *case[2], **case[3])
+        err = max(err, same_beam(case, k, kpool, f"V={Vo}, {mode}"))
+        if int(kpool[3].sum()) == 0:
+            raise AssertionError("the odd-vocabulary beam case put nothing into the pools")
+    return err
 
 
 # ---- phase 2b: the word-timing kernels vs plain versions -------------------
@@ -655,23 +940,25 @@ def replay_cross_kv(model):
     )
 
 
-# ---- phase 6: where a greedy window's time goes ---------------------------
+# ---- phase 6: where a decode window's time goes --------------------------
 
 
-def decode_loop_profile(model, audio):
-    """One greedy window of decode() at the model's width: the engine's
-    wall ms per step (host clock, unprofiled run) and, from a profiled run,
-    between the first and the last greedy_argmax launch, the device-busy ms
-    per step (the union of the kernels' intervals) and the host's ms per
-    step blocked in device-to-host reads (`aten::_local_scalar_dense`, the
-    read of the `completed` flag)."""
+def decode_loop_profile(model, audio, beam_size=None):
+    """One window of decode() at the model's width, greedy or beam search:
+    the engine's wall ms per step (host clock, unprofiled runs) and, from a
+    profiled run, between the first and the last update launch, the
+    device-busy ms per step (the union of the kernels' intervals), the
+    kernels per step, the update kernel's device ms per step, and the
+    host's ms per step blocked in device-to-host reads
+    (`aten::_local_scalar_dense`, the read of the `completed` flag)."""
     from torch.profiler import ProfilerActivity, profile
 
     from whisper_tpu_torch.ops.stft import device_mel_full, device_mel_window
 
     mel, _ = device_mel_full(audio, model.dims.n_mels, DEV)
     window = device_mel_window(mel, 0, 3000)
-    opts = DecodingOptions(language="en", temperature=0.0)
+    opts = DecodingOptions(language="en", temperature=0.0, beam_size=beam_size)
+    update = "beam_update_kernel" if beam_size else "greedy_argmax_kernel"
     engine_runs = model._fused_engine.history
     walls = []
     for _ in range(3):
@@ -691,7 +978,7 @@ def decode_loop_profile(model, audio):
         e.time_range for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::_local_scalar_dense"
     ]  # fmt: skip
-    updates = [sp for sp in spans if "greedy_argmax_kernel" in sp[2]]
+    updates = [sp for sp in spans if update in sp[2]]
     if len(updates) < 2:
         raise AssertionError("the profiled window ran fewer than two updates")
     lo, hi = updates[0][0], updates[-1][1]
@@ -709,6 +996,7 @@ def decode_loop_profile(model, audio):
     wall = statistics.median(walls)
     busy_ms = busy / n / 1e3
     return dict(
+        mode=f"beam{beam_size}" if beam_size else "greedy",
         steps=steps,
         wall_ms_per_step=wall,
         wall_ms_per_step_runs=walls,
@@ -716,6 +1004,7 @@ def decode_loop_profile(model, audio):
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / wall,
         kernels_per_step=n_kernels / n,
+        update_ms_per_step=sum(b - a for a, b, _ in updates) / len(updates) / 1e3,
         host_reads_per_step=len(reads) / n,
         host_read_ms_per_step=sum(r.elapsed_us() for r in reads) / n / 1e3,
     )
@@ -729,7 +1018,9 @@ def main():
     card = card_line()
 
     t = time.perf_counter()
+    start_empty_build()
     build.load_library()
+    empty_lib()
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t}))
     log("\n".join(line for line in build.build_log.splitlines() if "Used" in line))
 
@@ -737,6 +1028,7 @@ def main():
         "greedy_argmax": check_greedy(), "beam_update": check_beam(), "dtw_trace": check_dtw(),
         "median_filter": check_median(),
     }  # fmt: skip
+    log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
     log(json.dumps({"phase": "f32_products", **f32_products()}))
     for name, r in kernels.items():
         log(json.dumps({"phase": "kernel", "name": name, **r, "card": card}))
@@ -776,7 +1068,9 @@ def main():
             raise AssertionError(f"the main path never launched {name}")
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
-    log(json.dumps({"phase": "loop_profile", **decode_loop_profile(model, audio), "card": card}))
+    for beam_size in (None, 5):
+        profile = decode_loop_profile(model, audio, beam_size)
+        log(json.dumps({"phase": "loop_profile", **profile, "card": card}))
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
@@ -791,6 +1085,7 @@ def main():
                 "replaces": source[name][1], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r.get("library_ms"),
+                **{k: r[k] for k in ("cluster", "call_ms") if k in r},
             }  # fmt: skip
             for name, r in kernels.items()
         ]

@@ -1,4 +1,5 @@
-// Filtered greedy argmax and its log-probability, one block per row.
+// Filtered greedy argmax and its log-probability, one thread-block cluster
+// per row.
 //
 // Replaces: whisper_tpu/ops/beam_kernel.py:greedy_argmax_pallas (body
 // _greedy_argmax_kernel, region sweeps at K=1). Computes, per row, the
@@ -6,48 +7,74 @@
 // the token history, the timestamp-mass rule, the argmax with ties to the
 // lowest id, and logit - logsumexp of the filtered row.
 //
-// Bound on this card: bytes. The work is a few operations per logit; the
-// least traffic is the (B, V) f32 logits plus the penalty vectors, about
-// 0.4-0.6 MB at V = 51866, i.e. well under a microsecond at 3.35 TB/s. At
-// B = 1 the real limit is latency: one block runs on one SM of 132.
+// Bound on this card: bytes, in principle. The least traffic is the (B, V)
+// f32 logits plus the penalty vectors, about 0.4 MB at B = 1, V = 51866:
+// 0.12 us at 3.35 TB/s, below the latency of any launch. What one row costs
+// is latency: of the launch, of a few rounds of loads, of the reductions.
 //
-// Design: one strided pass over V keeps, per thread, the running best
-// (value, id) and an online (max, sum-exp) for the text and the timestamp
-// regions; warp shuffles and shared memory reduce them, and thread 0
-// applies the timestamp-mass rule. The begin penalty is read only at the
-// first sampled position. Speeding this up (several blocks per row, wider
-// loads) is left for later work.
+// Design: the row's vocabulary is split into C contiguous chunks, one per
+// CTA of a cluster of C CTAs (C = 16 where the card holds such clusters,
+// else the largest that fits; see fit_chunks). Each CTA computes the row's
+// timestamp flags itself while its first loads are in flight, sweeps its
+// chunk (float2 loads where V is even and the inputs are 8-byte aligned)
+// into a text and a timestamp region (split per id), reduces them to a
+// Sweep<1> and stores it into the rank-0 CTA's shared memory. After one
+// cluster barrier, one warp of rank 0 merges
+// the C partials (update_common.cuh: the top-1 by better(), the sums by a
+// fixed butterfly over the ranks) and applies the timestamp-mass rule. The
+// other CTAs exit at the barrier: nobody reads their shared memory. The
+// begin penalty is read only at the first sampled position.
 #include "update_common.cuh"
 
 namespace wtt {
 
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ tokens,
                      const float* __restrict__ suppress, const float* __restrict__ begin,
                      int* __restrict__ out_tok, float* __restrict__ out_lp, int V, int T,
                      int n_tokens, int sample_begin, int use_ts, int eot, int ts_begin) {
   __shared__ TsFlags flags;
-  __shared__ Sweep<1> sw;
-  const int row = blockIdx.x;
+  __shared__ Scratch<1> scratch;
+  __shared__ Sweep<1> parts[kMaxCluster];  // rank 0's: the chunks' partials
+  __shared__ Sweep<1> row_sweep;
+  cluster_arrive_relaxed();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks();
+  const int c = cluster.block_rank();
+  const int row = blockIdx.x / C;
 
-  if (threadIdx.x < 32) {
-    TsFlags f = {0, 0, 0, 0};
-    if (use_ts) f = warp_ts_flags(tokens + (size_t)row * T, n_tokens, sample_begin, ts_begin);
-    if (threadIdx.x == 0) flags = f;
+  int lo, hi;
+  chunk_bounds<W>(V, C, c, lo, hi);
+  RowSrc src{logits + (size_t)row * V, suppress, n_tokens == sample_begin ? begin : nullptr};
+  sweep_chunk<1, W>(src, tokens + (size_t)row * T, n_tokens, sample_begin, use_ts, eot,
+                    ts_begin, use_ts ? ts_begin : V, lo, hi, flags, scratch,
+                    cluster.map_shared_rank(&parts[c], 0));
+  cluster_arrive();
+  cluster_wait();
+
+  if (c == 0 && threadIdx.x < 32) {
+    merge_row<1>(parts, C, row_sweep);
+    if (threadIdx.x == 0) {
+      float lp;
+      int tok;
+      row_candidates<1>(row_sweep, use_ts, &lp, &tok);
+      out_tok[row] = tok;
+      out_lp[row] = lp;
+    }
   }
-  __syncthreads();
+}
 
-  RowFilter rf{logits + (size_t)row * V, suppress,
-               n_tokens == sample_begin ? begin : nullptr, use_ts, eot, ts_begin, flags};
-  sweep_row<1>(rf, V, use_ts ? ts_begin : V, sw);
-
-  if (threadIdx.x == 0) {
-    float lp;
-    int tok;
-    row_candidates<1>(sw, use_ts, &lp, &tok);
-    out_tok[row] = tok;
-    out_lp[row] = lp;
-  }
+template <int W>
+int launch_greedy(const float* logits, const int* tokens, const float* suppress,
+                  const float* begin, int* out_tok, float* out_lp, int B, int V, int T,
+                  int n_tokens, int sample_begin, int use_ts, int eot, int ts_begin,
+                  cudaStream_t stream) {
+  int C = fit_chunks<greedy_argmax_kernel<W>>(1);
+  if (C == 0) return (int)cudaErrorInvalidConfiguration;
+  return (int)launch_clusters(greedy_argmax_kernel<W>, B * C, C, stream, logits, tokens,
+                              suppress, begin, out_tok, out_lp, V, T, n_tokens, sample_begin,
+                              use_ts, eot, ts_begin);
 }
 
 }  // namespace wtt
@@ -56,8 +83,15 @@ extern "C" int wtt_greedy_argmax(const float* logits, const int* tokens, const f
                                  const float* begin, int* out_tok, float* out_lp, int B, int V,
                                  int T, int n_tokens, int sample_begin, int use_ts, int eot,
                                  int ts_begin, cudaStream_t stream) {
-  wtt::greedy_argmax_kernel<<<B, wtt::kThreads, 0, stream>>>(
-      logits, tokens, suppress, begin, out_tok, out_lp, V, T, n_tokens, sample_begin, use_ts,
-      eot, ts_begin);
-  return (int)cudaGetLastError();
+  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2>
+                                                             : wtt::launch_greedy<1>;
+  return launch(logits, tokens, suppress, begin, out_tok, out_lp, B, V, T, n_tokens,
+                sample_begin, use_ts, eot, ts_begin, stream);
+}
+
+// Chunks per row (the cluster size) that the greedy kernel uses on the
+// current device, 0 if none fits.
+extern "C" int wtt_greedy_argmax_chunks(int V) {
+  return V % 2 ? wtt::fit_chunks<wtt::greedy_argmax_kernel<1>>(1)
+               : wtt::fit_chunks<wtt::greedy_argmax_kernel<2>>(1);
 }

@@ -33,6 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wtt_greedy_argmax": [_P] * 6 + [_I] * 8 + [_P],
     "wtt_beam_update": [_P] * 12 + [_I] * 11 + [_P],
+    "wtt_greedy_argmax_chunks": [_I],
+    "wtt_beam_update_chunks": [_I] * 2,
     "wtt_dtw_trace": [_P] * 2 + [_I] * 2 + [_P],
     "wtt_median_filter": [_P] * 2 + [_I] * 4 + [_P],
 }

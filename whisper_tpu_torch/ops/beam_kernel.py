@@ -294,3 +294,11 @@ beam_update.launches = 0
 def reset_launch_counts():
     greedy_argmax.launches = 0
     beam_update.launches = 0
+
+
+def cluster_sizes(n_group, V):
+    """CTAs per thread-block cluster on the current CUDA device:
+    (greedy_argmax's cluster per row, beam_update's cluster per audio of
+    n_group beams)."""
+    lib = build.load_library()
+    return lib.wtt_greedy_argmax_chunks(V), n_group * lib.wtt_beam_update_chunks(n_group, V)
