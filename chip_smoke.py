@@ -19,15 +19,21 @@ Phases (any failure raises and the script exits non-zero):
      after the last; and the odd-vocabulary build (V = 51865) on randn and
      edge ties. Each update kernel's device ms and ms per call, beside the
      device ms of the empty kernel at the same launch shape and at one CTA,
-     and torch.topk(logits, K) on the same rows. The DTW trace at
-     (252, 1500), (40, 750), (234, 189) and (10, 20) on randn and on
-     integer-valued (tied) costs: trace and path bit for bit. The median
-     filter at 40 heads x 224 rows x 1500 frames, width 7, reflecting at
-     1500 and at 551, on randn and on a coarse grid: exactly equal (widths
-     3, 5 and 13 likewise on 300 rows). Time
-     kernel and plain version on the device (the profiler's kernel records)
-     and per call with the host's work (CUDA events, median of the calls);
-     time `unfold(...).median(-1)` beside the median filter;
+     and torch.topk(logits, K) on the same rows. The DTW trace at the main
+     path's shapes, at N + 1 = 1024 (the limit), at N + 1 and M + 1 off
+     multiples of 32, at M < 32 and at one cell, on randn and on
+     integer-valued (tied) costs: trace and path bit for bit; then 1,000
+     back-to-back launches. The median filter at 40 heads x 224 rows x 1500
+     frames, width 7, reflecting at 1500 and at 551, on randn, on a coarse
+     grid and on rows with planted NaN, +-inf and +-0: exactly equal, NaN
+     where NaN (widths 3, 5 and 13 likewise on 300 rows); at T = 1499 and
+     1502 and on an offset view 4 bytes past a 16-byte boundary (the
+     scalar-load build); then 1,000 back-to-back launches. Time kernel and
+     plain version on the device (the profiler's kernel records) and per
+     call with the host's work (CUDA events, median of the calls); time
+     `unfold(...).median(-1)` beside the median filter, the empty kernel at
+     each word-timing kernel's launch shape, and the DTW's chain floor (one
+     thread, N + M - 1 dependent steps of a cell's arithmetic);
   3. check that the graphs' float32 products of bf16 operands (logits,
      attention scores) are summed in float32 on the card and not rounded
      to bf16 (within 1e-4 of the float64 product);
@@ -189,8 +195,12 @@ def empty_lib():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {EMPTY_SRC}:\n{out}")
         lib = ctypes.CDLL(EMPTY_LIB)
-        lib.wtt_empty_kernel.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.wtt_empty_kernel.restype = ctypes.c_int
+        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+        lib.wtt_empty_kernel.argtypes = [c_int, c_int, c_ptr]
+        lib.wtt_empty_grid.argtypes = [c_int, c_int, c_int, c_int, c_ptr]
+        lib.wtt_chain.argtypes = [ctypes.c_double, c_int, c_ptr, c_ptr]
+        for fn in (lib.wtt_empty_kernel, lib.wtt_empty_grid, lib.wtt_chain):
+            fn.restype = c_int
         EMPTY["lib"] = lib
     return EMPTY["lib"]
 
@@ -617,65 +627,181 @@ def check_odd_vocab():
 KDTW, KMEDIAN = "dtw_trace_kernel", "median_filter_kernel"
 
 
+def empty_grid_ms(grid_x, grid_y, threads, smem_bytes=0):
+    """Device ms of one launch of the empty kernel on a (grid_x, grid_y)
+    grid of `threads`-thread CTAs with `smem_bytes` of dynamic shared
+    memory: the floor of a launch of that shape."""
+    lib, stream = empty_lib(), torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.wtt_empty_grid(grid_x, grid_y, threads, smem_bytes, stream)
+        if rc:
+            raise RuntimeError(f"empty grid kernel launch failed: CUDA error {rc}")
+
+    per_call_ms, per_call = device_ms(launch, kernel="empty_grid_kernel", attempts=6)
+    return per_call_ms / per_call
+
+
+def chain_floor_ms(steps):
+    """Device ms of one thread running `steps` dependent steps of a DTW
+    cell's arithmetic (smoke/empty_kernel.cu:chain_kernel)."""
+    lib, stream = empty_lib(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty(1, dtype=torch.float64, device=DEV)
+
+    def launch():
+        rc = lib.wtt_chain(0.5, steps, out.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
+
+    per_call_ms, per_call = device_ms(launch, kernel="chain_kernel", attempts=6)
+    return per_call_ms / per_call
+
+
+def dtw_smem_bytes(N):
+    """The DTW kernel's dynamic shared memory at N rows
+    (csrc/dtw.cu:dtw_smem_bytes): rings, flags, x and trace tiles."""
+    nw = -(-N // 32)
+    return nw * 64 * 8 + 2 * nw * 4 + nw * 2 * 32 * 17 * 4 + nw * 2 * 16 * 36
+
+
+def dtw_threads(N):
+    """The DTW kernel's block: a compute warp per strip of 32 rows, and an
+    I/O warp beside each while there are at most 15 strips."""
+    nw = -(-N // 32)
+    return 32 * (2 * nw if nw <= 15 else nw)
+
+
 def dtw_case(N, M, tied, seed):
     rng = np.random.RandomState(seed)
     x = rng.randint(-3, 4, size=(N, M)) if tied else rng.randn(N, M)
     return torch.from_numpy(x.astype(np.float32)).to(DEV)
 
 
+def same_dtw(x, k, what):
+    p = dtw.dtw_trace_plain(x)
+    torch.cuda.synchronize()
+    if k.dtype != torch.int8 or not torch.equal(k, p):
+        raise AssertionError(f"dtw_trace differs from plain ({what})")
+    if not np.array_equal(dtw.backtrace(k.cpu().numpy()), dtw.backtrace(p.cpu().numpy())):
+        raise AssertionError(f"dtw paths differ ({what})")
+
+
+# (N, M): the main path's largest and smaller windows; N + 1 = 1024 (the
+# limit); N + 1 and M + 1 off multiples of 32 (ragged strips and tiles);
+# M < 32 (one tile); one cell
+DTW_SHAPES = [
+    (252, 1500), (40, 750), (234, 189), (10, 20), (1023, 1500), (1023, 40), (100, 20),
+    (33, 31), (64, 1000), (31, 7), (1, 1), (1, 1500),
+]  # fmt: skip
+
+
 def check_dtw():
     """Trace tables and backtraced paths equal, bit for bit, on randn and
-    on integer-valued (tied) costs; device ms per shape; plain and per-call
-    times at the main path's largest shape (N = 252 tokens, M = 1500)."""
-    shapes = [(252, 1500), (40, 750), (234, 189), (10, 20)]
+    on integer-valued (tied) costs at every shape; 1,000 back-to-back
+    launches alternating two inputs, compared after the last; device ms per
+    shape; at the main path's largest shape (N = 252 tokens, M = 1500) the
+    plain and per-call times, the empty kernel at the same launch shape and
+    the chain floor: N + M - 1 dependent steps on one thread."""
     per_shape = {}
-    for seed, (N, M) in enumerate(shapes):
+    for seed, (N, M) in enumerate(DTW_SHAPES):
         for tied in (False, True):
             x = dtw_case(N, M, tied, seed)
-            k, p = dtw.dtw_trace(x), dtw.dtw_trace_plain(x)
-            torch.cuda.synchronize()
-            if k.dtype != torch.int8 or not torch.equal(k, p):
-                raise AssertionError(f"dtw_trace differs from plain at {(N, M)}, tied={tied}")
-            kp, pp = dtw.backtrace(k.cpu().numpy()), dtw.backtrace(p.cpu().numpy())
-            if not np.array_equal(kp, pp):
-                raise AssertionError(f"dtw paths differ at {(N, M)}, tied={tied}")
-        per_shape[f"{N}x{M}"] = kernel_ms(lambda: dtw.dtw_trace(x), dtw.dtw_trace, KDTW, 20)
-    N, M = shapes[0]
+            same_dtw(x, dtw.dtw_trace(x), f"{(N, M)}, tied={tied}")
+        if N * M >= 10000:
+            per_shape[f"{N}x{M}"] = kernel_ms(lambda: dtw.dtw_trace(x), dtw.dtw_trace, KDTW, 20)
+    x, y = dtw_case(252, 1500, False, 101), dtw_case(252, 1500, True, 102)
+    for _ in range(500):
+        kx, ky = dtw.dtw_trace(x), dtw.dtw_trace(y)
+    same_dtw(x, kx, "launch 999")
+    same_dtw(y, ky, "launch 1000")
+    N, M = DTW_SHAPES[0]
     x = dtw_case(N, M, False, 0)
     ms = kernel_ms(lambda: dtw.dtw_trace(x), dtw.dtw_trace, KDTW, 20)
     nbytes = 4 * N * M + (N + 1) * (M + 1)  # x read once, the int8 trace written once
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain_floor_ms(N + M - 1)
     return dict(
         max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: dtw.dtw_trace_plain(x), reps=2)[0],
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, call_ms=call_ms(lambda: dtw.dtw_trace(x), 20),
+        bound_ms=max(bytes_ms, chain_ms), bound_by="operations" if chain_ms > bytes_ms else "bytes",
+        bytes_bound_ms=bytes_ms, chain_floor_ms=chain_ms,
+        empty_ms=empty_grid_ms(1, 1, dtw_threads(N), dtw_smem_bytes(N)),
+        call_ms=call_ms(lambda: dtw.dtw_trace(x), 20),
         plain_call_ms=call_ms(lambda: dtw.dtw_trace_plain(x), 2), bytes=nbytes,
-        barriers=N + M - 1, device_ms_per_shape=per_shape, library_ms=None,
+        steps=N + M - 1, device_ms_per_shape=per_shape, library_ms=None,
     )  # fmt: skip
+
+
+def same_values(a, b):
+    """Equal values, NaN where NaN (torch.equal counts NaN unequal)."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+
+
+def special_rows(rows, T, seed):
+    """Rows of NaN (15% of entries, 50% in every fourth row), +-inf (10%),
+    0.0 and -0.0 (20%) and a coarse grid of numbers: windows of 7 then hold
+    1, 3 and 4 NaNs (a numeric and a NaN median), infinities and both
+    zeros, at column 0 and at n_valid too."""
+    rng = np.random.RandomState(seed)
+    x = np.round(rng.randn(rows, T) * 4) / 4
+    u = rng.rand(rows, T)
+    p_nan = np.where(np.arange(rows)[:, None] % 4 == 3, 0.5, 0.15)
+    x = np.where(u < p_nan, np.nan, x)
+    x = np.where((u >= p_nan) & (u < p_nan + 0.1), np.where(u < p_nan + 0.05, np.inf, -np.inf), x)
+    zero = (u >= p_nan + 0.1) & (u < p_nan + 0.3)
+    x = np.where(zero, np.where(u < p_nan + 0.2, 0.0, -0.0), x)
+    counts = np.lib.stride_tricks.sliding_window_view(np.isnan(x), 7, axis=-1).sum(-1)
+    if not all((counts == n).any() for n in (1, 3, 4)):
+        raise AssertionError("the special rows lack windows of 1, 3 or 4 NaNs")
+    return torch.from_numpy(x.astype(np.float32)).to(DEV)
 
 
 def check_median():
     """Exactly equal on the valid columns (and the copied ones past them),
     at 40 heads x 224 rows x 1500 frames, width 7, reflecting at 1500 and
-    at 551, on randn inputs and on inputs on a coarse grid (equal values);
-    widths 3, 5 and 13 likewise on 300 rows."""
+    at 551, on randn inputs, on inputs on a coarse grid (equal values) and
+    on rows with planted NaN, +-inf and +-0 (NaN where the plain version
+    has NaN); widths 3, 5 and 13 likewise on 300 rows; at T = 1499 and 1502
+    (not multiples of 4: the scalar-load build) and on an offset view 4
+    bytes past a 16-byte boundary (scalar-load build); then 1,000
+    back-to-back launches alternating two inputs, compared after the last.
+    Times at the main path's shape beside the empty kernel of the same
+    launch shape and `unfold(...).median(-1)`."""
     R, T, W = 40 * 224, 1500, 7
     gen = torch.Generator(device=DEV).manual_seed(7)
     base = torch.randn((R, T), generator=gen, device=DEV)
-    for grid in (False, True):
-        x = torch.round(base * 4) / 4 if grid else base
-        for n_valid in (T, 551):
-            k = median.median_filter(x, W, n_valid=n_valid)
-            p = median.median_filter_plain(x, W, n_valid=n_valid)
-            torch.cuda.synchronize()
-            if not torch.equal(k[:, :n_valid], p[:, :n_valid]) or not torch.equal(k, p):
-                raise AssertionError(f"median_filter differs (grid={grid}, n_valid={n_valid})")
-    # the kernel's other widths (the JAX package's test widths), on 300 rows
-    for w in (3, 5, 13):
-        for grid in (False, True):
-            x = torch.round(base[:300] * 4) / 4 if grid else base[:300]
+    special = special_rows(R, T, 8)
+    cases = [("randn", base), ("grid", torch.round(base * 4) / 4), ("special", special)]
+    for name, x in cases:
+        for w in (3, 5, 7, 13):
+            xw = x if w == W else x[:300]
             for n_valid in (T, 551):
-                k = median.median_filter(x, w, n_valid=n_valid)
-                if not torch.equal(k, median.median_filter_plain(x, w, n_valid=n_valid)):
-                    raise AssertionError(f"median_filter differs (width={w}, grid={grid})")
+                k = median.median_filter(xw, w, n_valid=n_valid)
+                if not same_values(k, median.median_filter_plain(xw, w, n_valid=n_valid)):
+                    raise AssertionError(f"median_filter differs ({name}, width={w}, {n_valid})")
+    for T2 in (1499, 1502):
+        rand = torch.randn((300, T2), generator=gen, device=DEV)
+        for name, x in (("randn", rand), ("special", special_rows(300, T2, T2))):
+            for w in (3, 7, 13):
+                for n_valid in (T2, 551, 4 if w < 7 else 7):
+                    k = median.median_filter(x, w, n_valid=n_valid)
+                    if not same_values(k, median.median_filter_plain(x, w, n_valid=n_valid)):
+                        raise AssertionError(f"median_filter differs (T={T2}, {name}, {w}, {n_valid})")
+    for name, x in (("randn", base[:300]), ("special", special[:300])):
+        view = offset_view(x)
+        if view.data_ptr() % 16 != 4:
+            raise AssertionError("the offset view is 16-byte aligned")
+        for w in (7, 13):
+            for n_valid in (T, 551):
+                k = median.median_filter(view, w, n_valid=n_valid)
+                if not same_values(k, median.median_filter_plain(x, w, n_valid=n_valid)):
+                    raise AssertionError(f"median_filter differs (offset view, {name}, {w}, {n_valid})")
+    x, y = base, special
+    for _ in range(500):
+        kx, ky = median.median_filter(x, W, 551), median.median_filter(y, W, T)
+    if not (same_values(kx, median.median_filter_plain(x, W, 551))
+            and same_values(ky, median.median_filter_plain(y, W, T))):  # fmt: skip
+        raise AssertionError("median_filter differs after 1,000 back-to-back launches")
     x = base
     ms = kernel_ms(lambda: median.median_filter(x, W, T), median.median_filter, KMEDIAN)
     # the one PyTorch call that computes the same values, on the input
@@ -687,8 +813,9 @@ def check_median():
     nbytes = 2 * 4 * R * T  # x read once, the result written once
     return dict(
         max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: median.median_filter_plain(x, W, T))[0],
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=device_ms(lambda: padded.unfold(-1, W, 1).median(-1))[0],
+        empty_ms=empty_grid_ms(-(-T // 512), min(R, 4096), 128),  # median_filter.cu's grid
         call_ms=call_ms(lambda: median.median_filter(x, W, T)),
         plain_call_ms=call_ms(lambda: median.median_filter_plain(x, W, T)), bytes=nbytes,
     )  # fmt: skip
@@ -1084,8 +1211,9 @@ def main():
                 "name": name, "route": "cuda", "source": "whisper_tpu_torch/csrc/" + source[name][0],
                 "replaces": source[name][1], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r.get("library_ms"),
-                **{k: r[k] for k in ("cluster", "call_ms") if k in r},
+                "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
+                "library_ms": r.get("library_ms"),
+                **{k: r[k] for k in ("cluster", "call_ms", "empty_ms", "chain_floor_ms") if k in r},
             }  # fmt: skip
             for name, r in kernels.items()
         ]

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from whisper_tpu.ops.dtw import _dtw_table_np, dtw_np
-from whisper_tpu.ops.median import median_filter_np
+from whisper_tpu.ops.median import median_filter_jax, median_filter_np
 from whisper_tpu.ops.pallas_kernels import dtw_pallas, dtw_trace_pallas, median_filter_pallas
 from whisper_tpu_torch.ops import dtw as pdtw
 from whisper_tpu_torch.ops import median as pmed
@@ -116,6 +116,40 @@ def test_median_reflects_at_n_valid(n_valid):
     np.testing.assert_array_equal(got[:, n_valid:], x[:, n_valid:])
 
 
+def _special_rows(seed, rows, T):
+    """Rows with planted NaN (one, three and four in a window of 7), +-inf,
+    and 0.0 beside -0.0, among coarse-grid numbers."""
+    rng = np.random.RandomState(seed)
+    x = np.round(rng.randn(rows, T) * 2) / 2
+    x[0, 10] = np.nan  # one NaN
+    x[1, [20, 22, 24]] = np.nan  # three: the median is still a number
+    x[2, 30:34] = np.nan  # four: the median is NaN
+    x[3, [0, 2]] = np.nan  # at the reflected edge
+    x[4, [5, 40]], x[4, [6, 41]] = np.inf, -np.inf
+    x[5, 50:56] = [0.0, -0.0, 0.0, -0.0, -0.0, 1.0]
+    u = rng.rand(rows, T)
+    x[6:] = np.where(u[6:] < 0.2, np.nan, np.where(u[6:] < 0.3, np.inf, np.where(u[6:] < 0.4, -0.0, x[6:])))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("width", [3, 5, 7, 13])
+def test_median_orders_nan_last_as_the_jax_package(width):
+    """NaN sorts above every number, as jnp.sort and np.sort put it: the
+    plain version equals median_filter_np and median_filter_jax (the
+    word-timing path's jnp.sort rule) at n_valid = T, and median_filter_np
+    of the sliced rows at n_valid < T, NaN where they have NaN."""
+    x = _special_rows(width, 10, 64)
+    got = pmed.median_filter(torch.from_numpy(x), width).numpy()
+    np.testing.assert_array_equal(got, median_filter_np(x, width))
+    np.testing.assert_array_equal(got, np.asarray(median_filter_jax(x, width)))
+    if width == 7:
+        assert np.isnan(got[2, 31:33]).all() and np.isfinite(got[1, 22]) and np.isfinite(got[0, 10])
+    for n_valid in (7, 37):
+        got = pmed.median_filter(torch.from_numpy(x), width, n_valid=n_valid).numpy()
+        np.testing.assert_array_equal(got[:, :n_valid], median_filter_np(x[:, :n_valid], width))
+        np.testing.assert_array_equal(got[:, n_valid:], x[:, n_valid:])
+
+
 def test_median_identity_and_argument_checks():
     x = torch.from_numpy(np.random.RandomState(5).random((10, 2)).astype(np.float32))
     assert torch.equal(pmed.median_filter(x, 7), x)  # T <= width // 2: identity
@@ -138,13 +172,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N, M, tied", [(252, 1500, False), (40, 750, True), (10, 20, True)])
+@pytest.mark.parametrize(
+    "N, M, tied",
+    [(252, 1500, False), (40, 750, True), (10, 20, True), (1023, 40, True), (33, 31, False)],
+)
 def test_dtw_kernel_matches_plain(cuda_device, N, M, tied):
     rng = np.random.RandomState(N)
     x = rng.randint(-2, 3, size=(N, M)) if tied else rng.randn(N, M)
     x = torch.from_numpy(x.astype(np.float32))
     got = pdtw.dtw_trace(x.to(cuda_device)).cpu()
     assert torch.equal(got, pdtw.dtw_trace_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [1500, 551])
+@pytest.mark.parametrize("width", [3, 5, 7, 13])
+def test_median_kernel_orders_nan_last(cuda_device, n_valid, width):
+    x = torch.from_numpy(_special_rows(width, 300, 1500))
+    got = pmed.median_filter(x.to(cuda_device), width, n_valid=n_valid).cpu()
+    want = pmed.median_filter_plain(x, width, n_valid=n_valid)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())  # NaN where NaN
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import torch
 
 from ..kernels import build
 
-MAX_ROWS = 1023  # text tokens per matrix: one thread per row, N + 1 <= 1024
+MAX_ROWS = 1023  # text tokens per matrix: one lane per row, one block of <= 32 warps
 
 
 def backtrace(trace: np.ndarray) -> np.ndarray:

@@ -8,7 +8,9 @@ tensors; there is no other route. The word-timing cost matrix reflects at
 the window's valid frame count, not at the array's edge
 (whisper_tpu/models/graphs.py:436-444), so the boundary is an argument.
 Columns at or past `n_valid` are copied from the input: the caller slices
-them off.
+them off. NaN orders above every number, as in torch.sort and jnp.sort (the
+JAX package's word-timing path, whisper_tpu/models/graphs.py:444): a window
+with more than width // 2 NaNs has a NaN median.
 """
 
 from typing import Optional
