@@ -11,8 +11,9 @@ Phases (any failure raises and the script exits non-zero):
      bf16-rounded logits, on logits with planted ties (equal maxima in a
      row, equal candidates across beams, equal maxima on both sides of
      every chunk edge), with whole chunks suppressed, and with all but four
-     ids suppressed; greedy at B = 1, 2, 5, 8 and beam at (A, G) = (1, 1),
-     (1, 2), (2, 5), (3, 5), (1, 8), so odd rows too; on inputs that start
+     ids suppressed; greedy at B = 1, 2, 4, 5, 8 and beam at (A, G) = (1, 1),
+     (1, 2), (2, 5), (3, 5), (4, 5), (1, 8), so odd rows too (B = 4 and
+     A = 4 are the batch phase's shapes); on inputs that start
      4 bytes past an 8-byte boundary (offset views: the scalar-load build):
      ids, sources, token buffers and pools exactly, scores within 1e-5;
      then 1,000 back-to-back launches alternating two inputs, compared
@@ -42,7 +43,11 @@ Phases (any failure raises and the script exits non-zero):
      1e-3; transcribe() jfk with word timestamps on both: equal words,
      times within 1e-6 s; and jfk, 8 s of silence, jfk twice with
      hallucination_silence_threshold=2.0: each window's segments and words
-     as aligned, and the kept segments, equal (times within 1e-6 s);
+     as aligned, and the kept segments, equal (times within 1e-6 s); and
+     transcribe_batch with conditioning of a 33 s jfk stream and 35 s of
+     noise, whose second round has two prompts, on the engine (one call per
+     prompt) and on the host loop (use_fused_decode off): the same loops and
+     equal tokens on the card and the CPU, and on both loops;
   5. transcribe() a 60 s clip (tests/data/jfk.flac tiled) at turbo width
      with seeded random bf16 weights: greedy with the default temperature
      ladder, beam 5 at temperature 0, greedy at temperature 0 with word
@@ -52,6 +57,23 @@ Phases (any failure raises and the script exits non-zero):
      DTW and median kernels launch once per aligned window, and that every
      word is finite, ordered and in its window; print the replay's share of
      the wall time, and time the cross-K/V each replay computes;
+  5b. the batch phase at turbo width: transcribe_batch of four streams at
+     T = 0 with conditioning (round 1 one fused greedy call at B = 4, round
+     2 the three unfinished streams, every prompt group on the engine),
+     beside transcribe() of the same streams one after another;
+     transcribe_chunked of 120 s at beam 5 (one fused call at A = 4);
+     transcribe_batch of two streams with word timestamps. Check that the
+     update kernels launch once per step of each fused temperature-0 loop,
+     the DTW and median kernels once per aligned window, that two identical
+     streams give identical tokens, and that every segment and word is
+     finite and ordered; print the RTFx of batch and sequential. Beside
+     them, not checked: each stream's row of the batched mel against its
+     own whole-file mel, batch against sequential tokens with the same
+     seeded weights at float32, and the engine's and the host loop's ms per
+     step on the same windows at B = 1 and B = 4;
+  5c. the CLI: `python -m whisper_tpu_torch --device cuda --parallel True`
+     in a subprocess on two files with a tiny model written by save_model;
+     all five outputs of each file present;
   6. profile one greedy window and one beam-5 window of decode() at turbo
      width: wall time, device-busy time, kernels, the update kernel's
      device time and the host's blocked read of the `completed` flag, per
@@ -67,6 +89,7 @@ import ctypes
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,7 +101,10 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script runs only on a card")
 
-from whisper_tpu_torch import DecodingOptions, decode, load_audio  # noqa: E402
+from whisper_tpu_torch import DecodingOptions, decode, load_audio, save_model  # noqa: E402
+from whisper_tpu_torch import batch as batch_module  # noqa: E402
+from whisper_tpu_torch import transcribe_batch, transcribe_chunked  # noqa: E402
+from whisper_tpu_torch.decoding import DecodingTask  # noqa: E402
 from whisper_tpu_torch.kernels import build  # noqa: E402
 from whisper_tpu_torch.models.dims import MODEL_DIMS, ModelDimensions  # noqa: E402
 from whisper_tpu_torch.models import graphs  # noqa: E402
@@ -90,6 +116,7 @@ from whisper_tpu_torch.ops import dtw, median  # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
 V, T = 51866, 448
+N_FRAMES = 3000  # frames of a 30 s window
 TS_BEGIN, EOT, NO_TS = 50365, 50257, 50364  # large-v3 / turbo vocabulary
 SAMPLE_BEGIN = 3
 SCORE_TOL = 1e-5
@@ -324,6 +351,9 @@ GREEDY_CASES = [
     (2, 10, False, "edge_ties"), (5, 14, True, "edge_ties"), (8, 9, False, "edge_ties"),
     (1, 12, True, "masked_chunk"), (5, 9, False, "masked_chunk"), (2, 9, False, "sparse"),
     (8, 14, True, "sparse"),
+    # B = 4: a round of transcribe_batch over four streams
+    (4, 3, True, "randn"), (4, 14, True, "ts_mass"), (4, 9, False, "edge_ties"),
+    (4, 12, True, "bf16"),
 ]  # fmt: skip
 
 
@@ -464,6 +494,9 @@ BEAM_CASES = [
     (3, 5, 10, 5, True, "eot", 1), (3, 5, 12, 6, True, "sparse", 0),
     (3, 5, 14, 7, True, "edge_ties", 0), (1, 8, 14, 7, True, "randn", 0),
     (1, 8, 12, 6, False, "edge_ties", 0), (1, 8, 9, 4, True, "masked_chunk", 0),
+    # (A, G) = (4, 5): transcribe_chunked's four chunks at beam 5
+    (4, 5, 3, 0, True, "randn", 0), (4, 5, 12, 6, True, "eot", 2),
+    (4, 5, 14, 7, False, "edge_ties", 0), (4, 5, 12, 6, True, "ties", 1),
 ]  # fmt: skip
 
 
@@ -920,6 +953,40 @@ def card_vs_cpu():
         windows_aligned=sum(r["aligned"] for r in creps), segments_kept=len(csegs),
         words_aligned=sum(len(words_of(r)) for r in creps), max_time_diff_s=d,
     )  # fmt: skip
+    # transcribe_batch with conditioning: 33 s of jfk and 35 s of noise,
+    # whose first windows decode to different tokens, so that round 2 has
+    # two prompts; on the engine and on the host loop, on both devices
+    noise = (np.random.RandomState(3).randn(35 * 16000) * 0.05).astype(np.float32)
+    streams = [np.tile(jfk, 3), noise]
+    runs = {}
+    for fused in (True, False):
+        for model in (gpu, cpu):
+            model.use_fused_decode = fused
+            try:
+                with watch_loops() as loops, watch_rounds() as rounds:
+                    results = transcribe_batch(model, streams, language="en", temperature=0.0)
+            finally:
+                model.use_fused_decode = True
+            kind = "fused" if fused else "host"
+            if [r["groups"] for r in rounds] != [1, 2] or any(lp["kind"] != kind for lp in loops):
+                raise AssertionError(f"batch on {model.device}: rounds {rounds}, loops {loops}")
+            runs[(kind, model.device.type)] = results, loops
+    cres = runs[("fused", "cpu")][0]
+    d = 0.0
+    for key, (res, _) in runs.items():
+        for i, (g, c) in enumerate(zip(res, cres)):
+            if g["text"] != c["text"] or [s["tokens"] for s in g["segments"]] != [
+                s["tokens"] for s in c["segments"]
+            ]:
+                raise AssertionError(f"batch {key}: stream {i} differs: {g['text']!r} vs {c['text']!r}")
+            for a, b in zip(g["segments"], c["segments"]):
+                d = max(d, abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+    if not d < 1e-6:
+        raise AssertionError(f"batch: segment times differ by {d} s")
+    out["batch"] = dict(
+        loops={f"{k}:{dev}": [f"{lp['kind']}:{lp['rows']}" for lp in lps] for (k, dev), (_, lps) in runs.items()},
+        segments=[len(r["segments"]) for r in cres], max_time_diff_s=d,
+    )  # fmt: skip
     return out
 
 
@@ -944,14 +1011,15 @@ def same_words(gw, cw, what) -> float:
 
 
 @contextlib.contextmanager
-def watch_replays():
-    """Within the block, log each word-timestamp replay of transcribe() (one
+def watch_replays(module="whisper_tpu_torch.transcribe"):
+    """Within the block, log each word-timestamp replay of transcribe() (or
+    of `module`'s caller, batch.py's for transcribe_batch; one
     add_word_timestamps call per window): its segments and words as aligned
     (copied before the silence pass may cull them), whether it had text
     tokens to align (then it launches median_filter and dtw_trace once), and
     its host-clock seconds. No synchronize is added: the replay ends in its
     own blocking read of the DTW trace. The function is restored on exit."""
-    tmod = importlib.import_module("whisper_tpu_torch.transcribe")
+    tmod = importlib.import_module(module)
     add_words = tmod.add_word_timestamps
     replays = []
 
@@ -971,6 +1039,56 @@ def watch_replays():
         yield replays
     finally:
         tmod.add_word_timestamps = add_words
+
+
+@contextlib.contextmanager
+def watch_loops():
+    """Within the block, log each decode loop a DecodingTask runs: "fused"
+    (the engine) or "host" (the host loop), its rows (audios x group), its
+    group, whether it is a beam search, its temperature, its steps (tokens
+    per row) and its host-clock seconds, which end in the loop's own reads
+    of the device. The methods are restored on exit."""
+    fused, host = DecodingTask._main_loop_fused, DecodingTask._main_loop_host
+    loops = []
+
+    def watched(run, kind):
+        def call(self, tokens):
+            t0 = time.perf_counter()
+            out = run(self, tokens)
+            loops.append(dict(
+                kind=kind, rows=tokens.shape[0], group=self.n_group,
+                beam=self.options.beam_size is not None, temperature=self.options.temperature,
+                steps=out[0].shape[1] - tokens.shape[1], seconds=time.perf_counter() - t0,
+            ))  # fmt: skip
+            return out
+
+        return call
+
+    DecodingTask._main_loop_fused = watched(fused, "fused")
+    DecodingTask._main_loop_host = watched(host, "host")
+    try:
+        yield loops
+    finally:
+        DecodingTask._main_loop_fused, DecodingTask._main_loop_host = fused, host
+
+
+@contextlib.contextmanager
+def watch_rounds():
+    """Within the block, log each call of batch._decode_window_batch (a
+    round's first attempt, or one stream's fallback): its rows, its
+    distinct prompts and its temperature. Restored on exit."""
+    run = batch_module._decode_window_batch
+    rounds = []
+
+    def watched(model, mels, prompts, lang, t, *args):
+        rounds.append(dict(rows=len(prompts), groups=len({tuple(p) for p in prompts}), temperature=t))
+        return run(model, mels, prompts, lang, t, *args)
+
+    batch_module._decode_window_batch = watched
+    try:
+        yield rounds
+    finally:
+        batch_module._decode_window_batch = run
 
 
 def reset_launch_counts():
@@ -1065,6 +1183,262 @@ def replay_cross_kv(model):
         device_ms=device_ms(lambda: model.cross_kv(xa))[0],
         call_ms=call_ms(lambda: model.cross_kv(xa)),
     )
+
+
+# ---- phase 5b: multi-stream transcription at turbo width --------------------
+
+
+def check_segments(results, what):
+    """Every segment's times and log-probability finite, start <= end, and
+    the windows' seeks not decreasing within a stream (with word timestamps
+    a window's segment edges follow its words, whose clamps may move a
+    start before the end of the segment before it, as in transcribe());
+    returns the segments counted."""
+    n = 0
+    for i, r in enumerate(results):
+        segs = r["segments"]
+        values = [v for seg in segs for v in (seg["start"], seg["end"], seg["avg_logprob"])]
+        seeks = [seg["seek"] for seg in segs]
+        if not segs or not np.isfinite(values).all() or seeks != sorted(seeks) or any(
+            seg["start"] > seg["end"] for seg in segs
+        ):
+            raise AssertionError(f"{what}: stream {i} has no, non-finite or unordered segments")
+        n += len(segs)
+    return n
+
+
+def loop_stats(loops, kind):
+    """ms per step (a token for every row) and per row token of the loops of
+    `kind`, on the host clock."""
+    mine = [lp for lp in loops if lp["kind"] == kind]
+    steps = sum(lp["steps"] for lp in mine)
+    seconds = sum(lp["seconds"] for lp in mine)
+    row_tokens = sum(lp["steps"] * lp["rows"] for lp in mine)
+    return dict(
+        loops=len(mine), rows=[lp["rows"] for lp in mine], steps=steps, seconds=seconds,
+        ms_per_step=seconds / steps * 1e3 if steps else None,
+        ms_per_row_token=seconds / row_tokens * 1e3 if row_tokens else None,
+    )  # fmt: skip
+
+
+def batch_run(name, fn, audio_s):
+    """One multi-stream run with the counts set to 0 just before it and read
+    just after: the update kernels launch once per step of each fused
+    temperature-0 loop, the word-timing kernels once per aligned window.
+    Every loop must be the engine's."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    with watch_loops() as loops, watch_rounds() as rounds, watch_replays(
+        "whisper_tpu_torch.batch"
+    ) as replays:
+        t0 = time.perf_counter()
+        results = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    fused_t0 = [lp for lp in loops if lp["kind"] == "fused" and lp["temperature"] == 0.0]
+    aligned = sum(r["aligned"] for r in replays)
+    want = {
+        "greedy_argmax": sum(lp["steps"] for lp in fused_t0 if not lp["beam"]),
+        "beam_update": sum(lp["steps"] for lp in fused_t0 if lp["beam"]),
+        "dtw_trace": aligned, "median_filter": aligned,
+    }  # fmt: skip
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != fused T=0 steps and aligned windows {want}")
+    if any(lp["kind"] != "fused" for lp in loops):
+        raise AssertionError(f"{name}: a loop left the engine: {loops}")
+    stats = dict(
+        wall_s=wall, audio_s=audio_s, rtfx=audio_s / wall, fused=loop_stats(loops, "fused"),
+        loops=[f"{lp['kind']}:{lp['rows']}" for lp in loops],
+        rounds=[f"{r['rows']}x{r['groups']}@{r['temperature']}" for r in rounds],
+    )  # fmt: skip
+    return results, stats, launches, loops, aligned
+
+
+def same_tokens(a, b) -> bool:
+    return [seg["tokens"] for seg in a["segments"]] == [seg["tokens"] for seg in b["segments"]]
+
+
+def mel_rows_vs_full(streams, n_mels):
+    """Each stream's row of the batched mel against its own whole-file mel
+    (ops/stft.device_mel_full, as transcribe() computes it): the largest
+    absolute difference over the frames both hold, and whether the two were
+    padded to the same length."""
+    from whisper_tpu_torch.frontend import batched_device_mel
+    from whisper_tpu_torch.ops.stft import device_mel_full
+
+    mels, _ = batched_device_mel(streams, n_mels, DEV)
+    out = []
+    for i, a in enumerate(streams):
+        full, _ = device_mel_full(a, n_mels, DEV)
+        F = min(full.shape[-1], mels.shape[-1])
+        diff = (mels[i, :, :F] - full[:, :F]).abs().max().item()
+        out.append(dict(max_abs_diff=diff, same_length=full.shape[-1] == mels.shape[-1]))
+    return out
+
+
+def f32_batch_vs_sequential(dims, streams, kw):
+    """The same seeded turbo weights at float32 compute: transcribe_batch of
+    the streams against transcribe() of each one, token for token."""
+    model = Whisper(dims, None, device="cuda", compute_dtype=torch.float32, seed=0)
+    batch = transcribe_batch(model, streams, **kw)
+    singles = [model.transcribe(a, verbose=None, **kw) for a in streams]
+    out = dict(
+        streams_equal_to_sequential=[same_tokens(b, q) for b, q in zip(batch, singles)],
+        identical_streams_equal=same_tokens(batch[0], batch[1]),
+    )
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def loop_ms_per_step(model, windows, opts):
+    """The engine's and the host loop's wall ms per step on the same
+    windows, run engine, host, host, engine."""
+    out = {"fused": [], "host": []}
+    try:
+        for kind in ("fused", "host", "host", "fused"):
+            model.use_fused_decode = kind == "fused"
+            with watch_loops() as loops:
+                decode(model, windows, opts)
+            (lp,) = loops
+            if lp["kind"] != kind:
+                raise AssertionError(f"asked for the {kind} loop, ran {lp['kind']}")
+            out[kind].append(lp["seconds"] / lp["steps"] * 1e3)
+    finally:
+        model.use_fused_decode = True
+    return out
+
+
+def batch_phase(model, audio, card):
+    """transcribe_batch of four streams at T = 0 with conditioning (the
+    60 s clip, the same clip, its last 53 s, its first 23 s), beside
+    transcribe() of the same streams one after another; transcribe_chunked
+    of 120 s at beam 5 (four chunks in one fused call at A = 4); and
+    transcribe_batch of two streams with word timestamps. Returns the
+    launches of the three runs.
+
+    Random weights give nearly every stream the same tokens whatever its
+    audio, and each window decodes the full 224 tokens without a
+    timestamp, so a stream's seek advances 30 s a round. The fourth stream
+    ends in round 1, so that round 2 holds three streams: the finished one
+    is dropped from the batch."""
+    sr = 16000
+    streams = [audio, audio.copy(), audio[7 * sr :], audio[: 23 * sr]]
+    total_s = sum(len(a) for a in streams) / sr
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    kw = dict(language="en", temperature=0.0, condition_on_previous_text=True)
+    results, stats, counts, loops, _ = batch_run(
+        "batch4", lambda: transcribe_batch(model, streams, **kw), total_s
+    )
+    add(counts)
+    if not loops or (loops[0]["kind"], loops[0]["rows"]) != ("fused", 4):
+        raise AssertionError(f"batch4: the first round was not one fused call at B = 4: {loops}")
+    if sum(lp["rows"] for lp in loops[1:]) != 3:
+        raise AssertionError(f"batch4: round 2 did not hold the three unfinished streams: {loops}")
+    if not same_tokens(results[0], results[1]):
+        raise AssertionError("batch4: two identical streams gave different tokens (rows interact)")
+    stats["segments"] = check_segments(results, "batch4")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    singles = [model.transcribe(a, verbose=None, **kw) for a in streams]
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    stats.update(
+        sequential_wall_s=seq_wall, sequential_rtfx=total_s / seq_wall,
+        speedup=seq_wall / stats["wall_s"],
+        streams_equal_to_sequential=[same_tokens(b, q) for b, q in zip(results, singles)],
+    )  # fmt: skip
+    log(json.dumps({"phase": "batch", "run": "batch4_conditioned", **stats, "launches": counts,
+                    "card": card}))  # fmt: skip
+
+    # witnesses for a batch stream that differs from its sequential run
+    t0 = time.perf_counter()
+    witness = dict(
+        mel_rows_vs_full=mel_rows_vs_full(streams, model.dims.n_mels),
+        f32=f32_batch_vs_sequential(model.dims, streams, kw),
+    )
+    from whisper_tpu_torch.frontend import batched_device_mel, batched_mel_windows
+
+    mels, _ = batched_device_mel(streams, model.dims.n_mels, DEV)
+    windows = batched_mel_windows(mels, [0] * 4, [N_FRAMES] * 4)
+    opts = DecodingOptions(language="en", temperature=0.0)
+    witness["loop_ms_per_step"] = {
+        f"B{b}": loop_ms_per_step(model, windows[:b], opts) for b in (1, 4)
+    }
+    witness["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "batch", "run": "witness", **witness, "card": card}))
+
+    long_audio = np.tile(audio, 2)[: 120 * sr]
+    results, stats, counts, loops, _ = batch_run(
+        "chunked",
+        lambda: [transcribe_chunked(model, long_audio, language="en", temperature=0.0, beam_size=5)],
+        120.0,
+    )  # fmt: skip
+    add(counts)
+    if not loops or (loops[0]["kind"], loops[0]["rows"], loops[0]["group"]) != ("fused", 20, 5):
+        raise AssertionError(f"chunked: the chunks were not one fused beam call at A = 4: {loops}")
+    stats["segments"] = check_segments(results, "chunked")
+    log(json.dumps({"phase": "batch", "run": "chunked_beam5", **stats, "launches": counts,
+                    "card": card}))  # fmt: skip
+
+    pair = [audio, audio[7 * sr :]]
+    words_kw = dict(language="en", temperature=0.0, word_timestamps=True)
+    results, stats, counts, loops, aligned = batch_run(
+        "words", lambda: transcribe_batch(model, pair, **words_kw), sum(len(a) for a in pair) / sr
+    )
+    add(counts)
+    if aligned == 0:
+        raise AssertionError("words: transcribe_batch aligned no window")
+    stats.update(
+        segments=check_segments(results, "words"), windows_aligned=aligned,
+        words=sum(check_words(r["segments"], len(a) / sr) for r, a in zip(results, pair)),
+    )  # fmt: skip
+    log(json.dumps({"phase": "batch", "run": "batch2_words", **stats, "launches": counts,
+                    "card": card}))  # fmt: skip
+    return launches
+
+
+def cli_phase():
+    """`python -m whisper_tpu_torch --device cuda --parallel True` in a
+    subprocess on two copies of jfk.flac, with a tiny float32 model written
+    by save_model: all five outputs of each file present."""
+    d = os.path.join(ROOT, "smoke", "_build", "cli")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    dims = ModelDimensions(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    npz = os.path.join(d, "tiny.npz")
+    save_model(Whisper(dims, tiny_params(dims, seed=11), device="cuda", compute_dtype=torch.float32), npz)
+    files = []
+    for name in ("a.flac", "b.flac"):
+        files.append(os.path.join(d, name))
+        shutil.copy(os.path.join(ROOT, "tests", "data", "jfk.flac"), files[-1])
+    out_dir = os.path.join(d, "out")
+    cmd = [
+        sys.executable, "-m", "whisper_tpu_torch", *files, "--model", npz, "--device", "cuda",
+        "--parallel", "True", "--language", "en", "--verbose", "False",
+        "--temperature_increment_on_fallback", "None", "--output_dir", out_dir,
+    ]  # fmt: skip
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    want = [f"{stem}.{ext}" for stem in ("a", "b") for ext in ("txt", "vtt", "srt", "tsv", "json")]
+    missing = [f for f in want if not os.path.isfile(os.path.join(out_dir, f))]
+    if missing:
+        raise AssertionError(f"the CLI wrote no {missing}")
+    with open(os.path.join(out_dir, "a.json"), encoding="utf-8") as f:
+        segments = len(json.load(f)["segments"])
+    if segments == 0:
+        raise AssertionError("the CLI's a.json holds no segment")
+    return dict(seconds=seconds, files=len(want), segments_a=segments, stdout=proc.stdout.strip()[-200:])
 
 
 # ---- phase 6: where a decode window's time goes --------------------------
@@ -1190,9 +1564,12 @@ def main():
             launches[k] = launches.get(k, 0) + v
         log(json.dumps({"phase": "main_path", "run": name, **stats, "launches": counts,
                         "card": card}))  # fmt: skip
+    for k, v in batch_phase(model, audio, card).items():
+        launches[k] = launches.get(k, 0) + v
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
+    log(json.dumps({"phase": "cli", **cli_phase()}))
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     for beam_size in (None, 5):

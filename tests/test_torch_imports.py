@@ -28,8 +28,12 @@ def test_import_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['regex'] = None\n"
         "import whisper_tpu_torch, whisper_tpu_torch.engine, whisper_tpu_torch.ops.beam_kernel\n"
         "import whisper_tpu_torch.timing, whisper_tpu_torch.ops.dtw, whisper_tpu_torch.ops.median\n"
+        "import whisper_tpu_torch.batch, whisper_tpu_torch.frontend, whisper_tpu_torch.cli\n"
+        "import whisper_tpu_torch.models.registry, whisper_tpu_torch.utils.writers\n"
+        "import whisper_tpu_torch.normalizers\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -60,7 +64,7 @@ def test_sources_name_no_jax_and_no_jax_package_module():
                     continue
                 for name in names:
                     top = name.split(".")[0]
-                    assert top not in ("jax", "jaxlib", "whisper_tpu", "tiktoken", "tqdm"), (
+                    assert top not in ("jax", "jaxlib", "whisper_tpu", "tiktoken", "tqdm", "regex"), (
                         path, name,
                     )  # fmt: skip
 
@@ -76,3 +80,31 @@ def test_entry_points_default_to_cuda(synth_checkpoint, tiny_dims):
         None, device="cpu", dims=tiny_dims, compute_dtype=torch.float32
     )
     assert model.device.type == "cpu"
+
+
+def test_batch_and_cli_default_to_cuda(tmp_path, monkeypatch, synth_checkpoint, jfk_flac_path):
+    """load_model's device defaults to cuda, and so does the CLI's
+    --device, which is then an error on a machine without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import inspect
+
+    from whisper_tpu_torch import cli
+
+    assert inspect.signature(whisper_tpu_torch.load_model).parameters["device"].default == "cuda"
+    monkeypatch.setattr(
+        sys, "argv", ["whisper-tpu-torch", jfk_flac_path, "--model", synth_checkpoint,
+                      "--output_dir", str(tmp_path)],
+    )  # fmt: skip
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.cli()
+
+
+def test_package_data_lists_the_new_modules():
+    """pyproject.toml installs the normalizers with their english.json, and
+    the console script."""
+    text = open(os.path.join(ROOT, "pyproject.toml"), encoding="utf-8").read()
+    assert '"whisper_tpu_torch.normalizers"' in text
+    assert '"normalizers/*.json"' in text
+    assert 'whisper-tpu-torch = "whisper_tpu_torch.cli:cli"' in text
+    assert os.path.isfile(os.path.join(PKG, "normalizers", "english.json"))

@@ -1,11 +1,16 @@
 """Per-window decoding: options, results, logit filters, greedy and beam
-decoders, ranking, and the decoding task on the engine's loop.
+decoders, ranking, and the decoding task.
 
 The counterpart of whisper_tpu/decoding.py, with the same option surface,
 initial-token construction, suppression sets, timestamp rules and beam
-bookkeeping. The filter classes derive the engine's arguments; the loop
-itself runs in engine.FusedEngine. (The JAX package's host-side loop is not
-ported yet.)
+bookkeeping. A window decodes on one of two loops:
+  * the engine (engine.FusedEngine): the whole loop on the model's device,
+    the filtered update in one kernel per token — the default;
+  * the host loop (`DecodingTask._main_loop_host`), when the model's
+    `use_fused_decode` is False: each step's logits come to the host as a
+    float32 numpy copy, the filters' `apply` and the decoders' `update` run
+    in numpy, and a beam reorder is carried to the next `decode_step` as a
+    gather. It launches no update kernel.
 """
 
 from dataclasses import dataclass, field, replace
@@ -24,6 +29,18 @@ if TYPE_CHECKING:
 
 def _as_tensor(model: "Whisper", x) -> torch.Tensor:
     return torch.as_tensor(x).to(model.device)
+
+
+def _host_f32(x: torch.Tensor) -> np.ndarray:
+    """A writable float32 numpy copy of a device tensor."""
+    return np.array(x.detach().to("cpu", torch.float32).numpy())
+
+
+def _log_softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    x = x.astype(np.float32)
+    m = x.max(axis=axis, keepdims=True)
+    s = x - m
+    return s - np.log(np.exp(s).sum(axis=axis, keepdims=True))
 
 
 @torch.inference_mode()
@@ -112,19 +129,67 @@ class DecodingResult:
 
 
 class Inference:
-    """The cross-K/V of one decode() call, as the engine consumes it."""
+    """The decoder state of one decode() call: the cross-K/V (all the engine
+    consumes), and for the host loop the 448-slot self-attention cache, its
+    write offset and the beam reorder still to apply (carried into the next
+    `decode_step` as a gather over the occupied slots)."""
 
     def __init__(self, model: "Whisper", n_group: int):
         self.model = model
         self.n_group = n_group
         self.ck = None
         self.cv = None
+        self.text_offset = 0
+        self.cache = None
+        self.prefill_hidden = None
+        self.pending_src: Optional[np.ndarray] = None
 
     def set_audio_features(self, audio_features, cross_kv=None):
         if cross_kv is not None:
             self.ck, self.cv = cross_kv
         else:
             self.ck, self.cv = self.model.cross_kv(audio_features)
+
+    def logits(self, tokens: np.ndarray) -> np.ndarray:
+        """tokens: (n_batch, cur_len) whole sequences. Returns the last
+        position's logits (n_batch, n_vocab) as a writable float32 numpy
+        copy. The first call runs the prefill, once per audio (a group's
+        rows are equal then), and keeps its hidden states for logits_at()."""
+        if self.text_offset == 0:
+            unique = tokens[:: self.n_group]
+            n = unique.shape[1]
+            hidden, kv = self.model.prefill(unique, n, self.ck, self.cv)
+            self.cache = self.model.kv_to_cache_grouped(kv, self.n_group)
+            self.text_offset = n
+            self.prefill_hidden = hidden
+            last = _host_f32(self.model.hidden_to_logits(hidden[:, n - 1]))
+            return np.repeat(last, self.n_group, axis=0)
+        src = self.pending_src
+        self.pending_src = None
+        logits, self.cache = self.model.decode_step(
+            tokens[:, -1].astype(np.int64), self.text_offset, self.cache, src, self.ck, self.cv
+        )
+        self.text_offset += 1
+        return _host_f32(logits)
+
+    def logits_at(self, position: int) -> np.ndarray:
+        """The prefill's logits at an absolute position, per audio and
+        repeated over its group (the no-speech probability at the sot)."""
+        out = _host_f32(self.model.hidden_to_logits(self.prefill_hidden[:, position]))
+        return np.repeat(out, self.n_group, axis=0)
+
+    def rearrange_kv_cache(self, source_indices: Sequence[int]):
+        src = np.asarray(source_indices, dtype=np.int64)
+        if self.pending_src is None:
+            self.pending_src = src
+        else:  # compose with a reorder not applied yet
+            self.pending_src = self.pending_src[src]
+
+    def cleanup_caching(self):
+        self.text_offset = 0
+        self.cache = None
+        self.prefill_hidden = None
+        self.pending_src = None
 
 
 class MaximumLikelihoodRanker:
@@ -156,14 +221,37 @@ class GreedyDecoder:
     def reset(self):
         pass
 
+    def update(self, tokens, logits, sum_logprobs):
+        """Host-loop step: argmax at T = 0, Gumbel-max at T > 0 from numpy's
+        global stream (np.random.seed() makes it reproducible). Rows that
+        ended stay at EOT."""
+        if self.temperature == 0:
+            next_tokens = logits.argmax(axis=-1)
+        else:
+            scaled = logits.astype(np.float64) / self.temperature
+            gumbel = -np.log(-np.log(np.random.uniform(size=scaled.shape)))
+            next_tokens = (scaled + gumbel).argmax(axis=-1)
+
+        logprobs = _log_softmax(logits)
+        current = logprobs[np.arange(logprobs.shape[0]), next_tokens]
+        sum_logprobs += current * (tokens[:, -1] != self.eot)
+
+        next_tokens[tokens[:, -1] == self.eot] = self.eot
+        tokens = np.concatenate([tokens, next_tokens[:, None]], axis=-1)
+
+        completed = bool((tokens[:, -1] == self.eot).all())
+        return tokens, completed
+
     def finalize(self, tokens, sum_logprobs):
         tokens = np.pad(tokens, ((0, 0), (0, 0), (0, 1)), constant_values=self.eot)
         return tokens, sum_logprobs.tolist()
 
 
 class BeamSearchDecoder:
-    def __init__(self, beam_size: int, eot: int, patience: Optional[float] = None):
-        self.beam_size, self.eot = beam_size, eot
+    def __init__(
+        self, beam_size: int, eot: int, inference: Inference, patience: Optional[float] = None
+    ):
+        self.beam_size, self.eot, self.inference = beam_size, eot, inference
         self.patience = patience or 1.0
         # finished candidates to collect per audio before stopping
         self.max_candidates: int = round(beam_size * self.patience)
@@ -173,6 +261,63 @@ class BeamSearchDecoder:
 
     def reset(self):
         self.finished_sequences = None
+
+    def update(self, tokens, logits, sum_logprobs):
+        """Host-loop step: the top beam_size + 1 continuations of each beam,
+        the best beam_size unfinished ones kept (their reorder handed to the
+        Inference), EOT-ended ones poured into the per-audio pools."""
+        if tokens.shape[0] % self.beam_size != 0:
+            raise ValueError(f"{tokens.shape}[0] % {self.beam_size} != 0")
+
+        n_audio = tokens.shape[0] // self.beam_size
+        if self.finished_sequences is None:
+            self.finished_sequences = [{} for _ in range(n_audio)]
+
+        logprobs = _log_softmax(logits)
+        next_tokens, source_indices, finished_sequences = [], [], []
+        for i in range(n_audio):
+            scores, sources, finished = {}, {}, {}
+
+            # argpartition prunes the vocabulary, then a stable sort of the
+            # small head keeps the exact tie order: ascending id on equal
+            # values, as torch.topk and the kernels give it
+            k = self.beam_size + 1
+            for j in range(self.beam_size):
+                idx = i * self.beam_size + j
+                prefix = tokens[idx].tolist()
+                row = logprobs[idx]
+                head = np.argpartition(-row, k + 8)[: k + 8 + 1]
+                head = head[np.lexsort((head, -row[head]))]
+                for token in head[:k]:
+                    sequence = tuple(prefix + [int(token)])
+                    scores[sequence] = float(sum_logprobs[idx] + row[token])
+                    sources[sequence] = idx
+
+            saved = 0
+            for sequence in sorted(scores, key=scores.get, reverse=True):
+                if sequence[-1] == self.eot:
+                    finished[sequence] = scores[sequence]
+                    continue
+                sum_logprobs[len(next_tokens)] = scores[sequence]
+                next_tokens.append(sequence)
+                source_indices.append(sources[sequence])
+                saved += 1
+                if saved == self.beam_size:
+                    break
+            finished_sequences.append(finished)
+
+        tokens = np.array(next_tokens, dtype=tokens.dtype)
+        self.inference.rearrange_kv_cache(source_indices)
+
+        # this step's finishers join the pools, best first, up to
+        # max_candidates; decoding completes once every pool is full
+        for pool, fresh in zip(self.finished_sequences, finished_sequences):
+            ranked = sorted(fresh, key=fresh.get, reverse=True)
+            room = max(0, self.max_candidates - len(pool))
+            pool.update((seq, fresh[seq]) for seq in ranked[:room])
+
+        completed = all(len(pool) >= self.max_candidates for pool in self.finished_sequences)
+        return tokens, completed
 
     def finalize(self, preceding_tokens, sum_logprobs):
         # fill with unfinished sequences if not enough finished ones exist
@@ -194,8 +339,12 @@ class BeamSearchDecoder:
 
 
 class LogitFilter:
-    """Filters describe the engine's suppression arguments; the engine
-    applies them on the device."""
+    """A filter's attributes are the engine's suppression arguments (the
+    engine applies them on the device); `apply` is the host loop's, on a
+    numpy (n_batch, n_vocab) logits array, in place."""
+
+    def apply(self, logits: np.ndarray, tokens: np.ndarray) -> None:
+        raise NotImplementedError
 
 
 class SuppressBlank(LogitFilter):
@@ -203,10 +352,17 @@ class SuppressBlank(LogitFilter):
         self.suppress = tokenizer.encode(" ") + [tokenizer.eot]
         self.sample_begin = sample_begin
 
+    def apply(self, logits, tokens):
+        if tokens.shape[1] == self.sample_begin:
+            logits[:, self.suppress] = -np.inf
+
 
 class SuppressTokens(LogitFilter):
     def __init__(self, suppress_tokens: Sequence[int]):
         self.suppress_tokens = list(suppress_tokens)
+
+    def apply(self, logits, tokens):
+        logits[:, self.suppress_tokens] = -np.inf
 
 
 class ApplyTimestampRules(LogitFilter):
@@ -220,10 +376,56 @@ class ApplyTimestampRules(LogitFilter):
         self.sample_begin = sample_begin
         self.max_initial_timestamp_index = max_initial_timestamp_index
 
+    def apply(self, logits, tokens):
+        """Timestamps come in pairs (but before EOT), never decrease, open
+        the sample, respect max_initial_timestamp, and win over text when
+        their total probability beats every text token's."""
+        tok = self.tokenizer
+        if tok.no_timestamps is not None:
+            logits[:, tok.no_timestamps] = -np.inf
+
+        for k in range(tokens.shape[0]):
+            seq = tokens[k, self.sample_begin :].tolist()
+            last_was_timestamp = len(seq) >= 1 and seq[-1] >= tok.timestamp_begin
+            penultimate_was_timestamp = len(seq) < 2 or seq[-2] >= tok.timestamp_begin
+
+            if last_was_timestamp:
+                if penultimate_was_timestamp:  # a closed pair: text next
+                    logits[k, tok.timestamp_begin :] = -np.inf
+                else:  # mid-pair: no text
+                    logits[k, : tok.eot] = -np.inf
+
+            timestamps = [t for t in seq if t >= tok.timestamp_begin]
+            if timestamps:
+                # monotonic timestamps, and segments of nonzero length
+                if last_was_timestamp and not penultimate_was_timestamp:
+                    timestamp_last = timestamps[-1]
+                else:
+                    timestamp_last = timestamps[-1] + 1
+                logits[k, tok.timestamp_begin : timestamp_last] = -np.inf
+
+        if tokens.shape[1] == self.sample_begin:
+            logits[:, : tok.timestamp_begin] = -np.inf
+            if self.max_initial_timestamp_index is not None:
+                last_allowed = tok.timestamp_begin + self.max_initial_timestamp_index
+                logits[:, last_allowed + 1 :] = -np.inf
+
+        logprobs = _log_softmax(logits)
+        for k in range(tokens.shape[0]):
+            ts_slice = logprobs[k, tok.timestamp_begin :]
+            m = ts_slice.max()
+            timestamp_logprob = (
+                m + np.log(np.exp(ts_slice - m).sum()) if np.isfinite(m) else -np.inf
+            )
+            max_text_token_logprob = logprobs[k, : tok.timestamp_begin].max()
+            if timestamp_logprob > max_text_token_logprob:
+                logits[k, : tok.timestamp_begin] = -np.inf
+
 
 class DecodingTask:
     """One decode attempt: tokenizer, initial tokens, token decoder, logit
-    filters and the engine (the JAX package's DecodingTask, fused path)."""
+    filters, and the engine or the host loop (whisper_tpu/decoding.py's
+    DecodingTask)."""
 
     def __init__(self, model: "Whisper", options: DecodingOptions):
         self.model = model
@@ -253,7 +455,9 @@ class DecodingTask:
         self.sequence_ranker = MaximumLikelihoodRanker(options.length_penalty)
 
         if options.beam_size is not None:
-            self.decoder = BeamSearchDecoder(options.beam_size, tokenizer.eot, options.patience)
+            self.decoder = BeamSearchDecoder(
+                options.beam_size, tokenizer.eot, self.inference, options.patience
+            )
         else:
             self.decoder = GreedyDecoder(options.temperature, tokenizer.eot)
 
@@ -337,10 +541,48 @@ class DecodingTask:
 
         return languages, lang_probs
 
+    def _can_fuse(self) -> bool:
+        """The engine decodes unless the model's `use_fused_decode` is off.
+        Initial tokens past the 256-token prefill window raise on either
+        loop."""
+        return getattr(self.model, "use_fused_decode", True)
+
     def _main_loop(self, tokens: np.ndarray):
+        if self._can_fuse():
+            return self._main_loop_fused(tokens)
+        return self._main_loop_host(tokens)
+
+    def _main_loop_host(self, tokens: np.ndarray):
+        """The host loop: per token, the step's logits as a float32 numpy
+        copy, the filters, then the decoder's update."""
+        n_batch = tokens.shape[0]
+        sum_logprobs = np.zeros(n_batch, dtype=np.float64)
+        no_speech_probs = [np.nan] * n_batch
+
+        try:
+            for i in range(self.sample_len):
+                logits = self.inference.logits(tokens)
+
+                if i == 0 and self.tokenizer.no_speech is not None:
+                    probs_at_sot = np.exp(_log_softmax(self.inference.logits_at(self.sot_index)))
+                    no_speech_probs = probs_at_sot[:, self.tokenizer.no_speech].tolist()
+
+                for logit_filter in self.logit_filters:
+                    logit_filter.apply(logits, tokens)
+
+                tokens, completed = self.decoder.update(tokens, logits, sum_logprobs)
+
+                if completed or tokens.shape[-1] > self.n_ctx:
+                    break
+        finally:
+            self.inference.cleanup_caching()
+
+        return tokens, sum_logprobs, no_speech_probs
+
+    def _main_loop_fused(self, tokens: np.ndarray):
         """Run the sampling loop in the engine and convert its outputs; beam
         pools are poured into BeamSearchDecoder.finished_sequences so that
-        finalize() and ranking behave as in the reference."""
+        finalize() and ranking behave as on the host loop."""
         from .engine import FusedEngine
 
         if getattr(self.model, "_fused_engine", None) is None:

@@ -110,8 +110,7 @@ class FusedEngine:
         hidden, kv = graphs.prefill(
             dec, first[:, :n_initial], n_initial, ck, cv, n_head=model.dims.n_text_head
         )
-        cache = model.new_cache(B)
-        cache[:, :, :, :n_initial] = kv.repeat_interleave(G, dim=2)
+        cache = model.kv_to_cache_grouped(kv, G)
         logits = graphs.hidden_to_logits(dec, hidden[:, n_initial - 1])  # (A, V)
         sot_logits = graphs.hidden_to_logits(dec, hidden[:, sot_index])
         no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, no_speech]

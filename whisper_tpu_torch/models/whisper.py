@@ -53,6 +53,9 @@ class Whisper(nn.Module):
         self.alignment_heads: List[Tuple[int, int]] = [
             (l, h) for l in range(half, dims.n_text_layer) for h in range(dims.n_text_head)
         ]
+        # decode() runs the engine; False sends it to the host loop
+        # (decoding.DecodingTask._main_loop_host)
+        self.use_fused_decode = True
 
     # ---- graph entry points -------------------------------------------------
 
@@ -125,6 +128,15 @@ class Whisper(nn.Module):
         """An empty (L, 2, batch, 448, d) self-attention K/V cache."""
         shape = (self.dims.n_text_layer, 2, batch, graphs.CACHE_SLOTS, self.dims.n_text_state)
         return torch.zeros(shape, dtype=self.compute_dtype, device=self.device)
+
+    @torch.inference_mode()
+    def kv_to_cache_grouped(self, kv, n_group: int) -> torch.Tensor:
+        """The prefill's kv (L, 2, n_audio, P, d) -> a cache (L, 2,
+        n_audio * n_group, 448, d) holding each audio's K/V in slots 0..P-1
+        of its n_group rows (audio-major), as engine.FusedEngine lays it."""
+        cache = self.new_cache(kv.shape[2] * n_group)
+        cache[:, :, :, : kv.shape[3]] = kv.repeat_interleave(n_group, dim=2)
+        return cache
 
     # ---- metadata ------------------------------------------------------------
 

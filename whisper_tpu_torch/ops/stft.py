@@ -105,23 +105,32 @@ def log_mel_spectrogram_torch(audio: torch.Tensor, n_mels: int = 80) -> torch.Te
     return out[0] if single else out
 
 
+def pack_audio(audio, total_samples: int) -> np.ndarray:
+    """A float32 waveform zero-padded to `total_samples`: as int16 when every
+    sample is exactly representable (i / 32768, as 16-bit PCM decodes), half
+    the bytes to upload and the same mel; as float32 otherwise (copied from
+    whisper_tpu/frontend.py)."""
+    audio = np.asarray(audio, dtype=np.float32)
+    n = audio.shape[-1]
+    scaled = audio * 32768.0
+    if np.all(np.abs(scaled) <= 32767) and np.array_equal(scaled, np.round(scaled)):
+        packed = np.zeros(total_samples, dtype=np.int16)
+        packed[:n] = scaled.astype(np.int16)
+    else:
+        packed = np.zeros(total_samples, dtype=np.float32)
+        packed[:n] = audio
+    return packed
+
+
 def device_mel_full(audio, n_mels: int, device):
     """audio: float32 (n,) host waveform -> (device mel (n_mels, F),
     content_frames). The waveform is zero-padded by 30 s and up to a 30 s
     multiple (extra zeros cannot change the global max); content_frames is
     derived from the true length. Audio representable as int16 is uploaded
-    as int16, which gives the same mel as the float path."""
-    audio = np.asarray(audio, dtype=np.float32)
-    n = audio.shape[-1]
-    total = n + _CHUNK_SAMPLES
-    bucket = -(-total // _CHUNK_SAMPLES) * _CHUNK_SAMPLES
-    scaled = audio * 32768.0
-    if np.all(np.abs(scaled) <= 32767) and np.array_equal(scaled, np.round(scaled)):
-        padded = np.zeros(bucket, dtype=np.int16)
-        padded[:n] = scaled.astype(np.int16)
-    else:
-        padded = np.zeros(bucket, dtype=np.float32)
-        padded[:n] = audio
+    as int16 (pack_audio)."""
+    n = np.asarray(audio).shape[-1]
+    bucket = -(-(n + _CHUNK_SAMPLES) // _CHUNK_SAMPLES) * _CHUNK_SAMPLES
+    padded = pack_audio(audio, bucket)
     mel = log_mel_spectrogram_torch(torch.from_numpy(padded).to(device), n_mels)
     return mel, n // HOP_LENGTH
 

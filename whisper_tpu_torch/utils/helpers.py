@@ -1,8 +1,8 @@
 """Small host-side helpers.
 
 Copied from whisper_tpu/utils/helpers.py (framework-free): the compression
-ratio used by the temperature-fallback gate, timestamp formatting, and the
-segment end-time lookup.
+ratio used by the temperature-fallback gate, timestamp formatting, the
+segment start- and end-time lookups, and the CLI's argument parsers.
 """
 
 import sys
@@ -26,6 +26,21 @@ def exact_div(x: int, y: int) -> int:
     return x // y
 
 
+def str2bool(string: str) -> bool:
+    table = {"True": True, "False": False}
+    if string not in table:
+        raise ValueError(f"Expected one of {set(table.keys())}, got {string}")
+    return table[string]
+
+
+def optional_int(string: str) -> Optional[int]:
+    return None if string == "None" else int(string)
+
+
+def optional_float(string: str) -> Optional[float]:
+    return None if string == "None" else float(string)
+
+
 def compression_ratio(text: str) -> float:
     """len(utf-8 bytes) / len(zlib-compressed bytes); high values indicate
     repetitive (likely degenerate) output."""
@@ -46,6 +61,14 @@ def format_timestamp(
 
     hours_marker = f"{hours:02d}:" if always_include_hours or hours > 0 else ""
     return f"{hours_marker}{minutes:02d}:{seconds:02d}{decimal_marker}{milliseconds:03d}"
+
+
+def get_start(segments: List[dict]) -> Optional[float]:
+    """Start time of the first word across segments (or first segment start)."""
+    return next(
+        (w["start"] for s in segments for w in s.get("words", [])),
+        segments[0]["start"] if segments else None,
+    )
 
 
 def get_end(segments: List[dict]) -> Optional[float]:
