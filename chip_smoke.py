@@ -74,6 +74,34 @@ Phases (any failure raises and the script exits non-zero):
   5c. the CLI: `python -m whisper_tpu_torch --device cuda --parallel True`
      in a subprocess on two files with a tiny model written by save_model;
      all five outputs of each file present;
+  bf16_rows: one turbo bf16 window through encode, cross_kv, prefill, the
+     logits and one decode_step at B = 1 and as row 0 of B = 4, beside
+     three other audios and beside three copies of itself: per output the
+     max abs difference and equality, the first output that differs, and
+     whether rows interact; probes of conv1 and of one GEMM at M = 1500
+     against M = 6000 (reported, not checked);
+  5d. StreamingTranscriber over the 60 s clip, greedy at T = 0: 1 s chunks
+     with a partial every 5 s, and 7 s chunks with word timestamps. Finals,
+     partials, seconds per final window, the latency from the feed() that
+     completes a window to its finals, and each final window's mel against
+     the whole-file mel's window. The finals against transcribe() of the
+     same audio: reported in bf16, equal (tokens; words within 1e-6 s) with
+     the same seeded weights at float32;
+  5e. ContinuousBatcher(slots=2) at T = 0 with conditioning: the 60 s clip
+     and its first 23 s, one round, then its last 53 s and jfk; and a
+     beam-5 run of two requests. Rounds and rows, the batcher's stats,
+     aggregate RTFx; each ticket against transcribe(), reported in bf16 and
+     equal at float32;
+  5f. the unix-socket server (three concurrent jfk.flac clients, a bad
+     request, a pcm16 live session) and the HTTP server (three concurrent
+     uploads, /healthz, /metrics, an s16 live session), serve_forever on a
+     thread: every reply equal to transcribe() or to the batcher's result
+     for the same requests, the wall time per request, and every server
+     thread ended after shutdown(). The update kernels launch once per
+     step of each fused T = 0 loop and the word-timing kernels once per
+     aligned window in 5d-5f, and each kernel launches there (beam in 5e);
+  card vs CPU at tiny dims: streaming finals (7 s chunks, words) and a
+     batcher run with two prompts in a round, equal on card and CPU;
   6. profile one greedy window and one beam-5 window of decode() at turbo
      width: wall time, device-busy time, kernels, the update kernel's
      device time and the host's blocked read of the `completed` flag, per
@@ -93,6 +121,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -354,6 +383,9 @@ GREEDY_CASES = [
     # B = 4: a round of transcribe_batch over four streams
     (4, 3, True, "randn"), (4, 14, True, "ts_mass"), (4, 9, False, "edge_ties"),
     (4, 12, True, "bf16"),
+    # B = 3: a batcher round of three concurrent server requests (B = 2 above)
+    (3, 3, True, "randn"), (3, 14, True, "ts_mass"), (3, 9, False, "edge_ties"),
+    (3, 12, True, "bf16"),
 ]  # fmt: skip
 
 
@@ -1074,21 +1106,23 @@ def watch_loops():
 
 @contextlib.contextmanager
 def watch_rounds():
-    """Within the block, log each call of batch._decode_window_batch (a
-    round's first attempt, or one stream's fallback): its rows, its
-    distinct prompts and its temperature. Restored on exit."""
-    run = batch_module._decode_window_batch
+    """Within the block, log each call of batch.py's _decode_window_batch
+    (transcribe_batch's and the batcher's rounds: a round's first attempt,
+    or one stream's fallback): its rows, its distinct prompts and its
+    temperature. Restored on exit."""
+    module = batch_module
+    run = module._decode_window_batch
     rounds = []
 
     def watched(model, mels, prompts, lang, t, *args):
         rounds.append(dict(rows=len(prompts), groups=len({tuple(p) for p in prompts}), temperature=t))
         return run(model, mels, prompts, lang, t, *args)
 
-    batch_module._decode_window_batch = watched
+    module._decode_window_batch = watched
     try:
         yield rounds
     finally:
-        batch_module._decode_window_batch = run
+        module._decode_window_batch = run
 
 
 def reset_launch_counts():
@@ -1221,16 +1255,15 @@ def loop_stats(loops, kind):
     )  # fmt: skip
 
 
-def batch_run(name, fn, audio_s):
+def batch_run(name, fn, audio_s, replays_of="whisper_tpu_torch.batch"):
     """One multi-stream run with the counts set to 0 just before it and read
     just after: the update kernels launch once per step of each fused
-    temperature-0 loop, the word-timing kernels once per aligned window.
-    Every loop must be the engine's."""
+    temperature-0 loop, the word-timing kernels once per aligned window
+    (the replays of `replays_of`). Every loop
+    must be the engine's."""
     reset_launch_counts()
     torch.cuda.synchronize()
-    with watch_loops() as loops, watch_rounds() as rounds, watch_replays(
-        "whisper_tpu_torch.batch"
-    ) as replays:
+    with watch_loops() as loops, watch_rounds() as rounds, watch_replays(replays_of) as replays:
         t0 = time.perf_counter()
         results = fn()
         torch.cuda.synchronize()
@@ -1441,6 +1474,541 @@ def cli_phase():
     return dict(seconds=seconds, files=len(want), segments_a=segments, stdout=proc.stdout.strip()[-200:])
 
 
+# ---- bf16_rows: one window alone and as row 0 of a batch of four -----------
+
+
+def bf16_chain(model, windows, tokens, step_token):
+    """encode, cross_kv, prefill, the prefill's last logits and one
+    decode_step of `windows` (B, n_mels, 3000) at the model's dtype: each
+    output as a float32 tensor."""
+    B = windows.shape[0]
+    xa = model.encode(windows)
+    ck, cv = model.cross_kv(xa)
+    toks = torch.tensor([tokens] * B, dtype=torch.int64, device=DEV)
+    hidden, kv = model.prefill(toks, len(tokens), ck, cv)
+    logits = model.hidden_to_logits(hidden[:, -1])
+    cache = model.kv_to_cache_grouped(kv, 1)
+    step_logits, cache = model.decode_step(
+        torch.full((B,), step_token, dtype=torch.int64, device=DEV), len(tokens), cache, None, ck, cv
+    )
+    outs = dict(
+        encode=xa, cross_k=ck.transpose(0, 1), cross_v=cv.transpose(0, 1), prefill_hidden=hidden,
+        prefill_kv=kv.transpose(0, 2), prefill_logits=logits, step_logits=step_logits,
+        step_cache=cache[:, :, :, : len(tokens) + 1].transpose(0, 2),
+    )  # fmt: skip
+    return {k: v.float() for k, v in outs.items()}  # batch first
+
+
+def bf16_rows(model, audio):
+    """Queue-3 item 1 of the roadmap: the same turbo bf16 window decoded at
+    B = 1 and as row 0 of B = 4, once with three other audios beside it and
+    once with three copies of itself. For each output of encode, cross_kv,
+    prefill, the logits and one decode_step: the max abs difference of row
+    0 between B = 1 and B = 4, and between the two B = 4 runs (equal there:
+    the rows do not interact, and what differs is arithmetic that depends
+    on B). Two probes of the encoder's first ops name the source: conv1 of
+    the mel and the first q projection (a GEMM of M = 1500 B rows)."""
+    from whisper_tpu_torch.frontend import batched_device_mel, batched_mel_windows
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    sr = 16000
+    noise = (np.random.RandomState(9).randn(30 * sr) * 0.05).astype(np.float32)
+    clips = [audio[: 30 * sr], audio[30 * sr : 60 * sr], audio[7 * sr : 37 * sr], noise]
+    mels, _ = batched_device_mel(clips, model.dims.n_mels, DEV)
+    others = batched_mel_windows(mels, [0] * 4, [N_FRAMES] * 4)
+    copies = others[:1].expand(4, -1, -1).contiguous()
+    tok = get_tokenizer(True, num_languages=model.num_languages, language="en", task="transcribe")
+    tokens = list(tok.sot_sequence)
+    runs = {name: bf16_chain(model, w, tokens, tok.timestamp_begin)
+            for name, w in (("b1", others[:1]), ("b4_others", others), ("b4_copies", copies))}  # fmt: skip
+    outputs, first_differs = {}, None
+    for key in runs["b1"]:
+        a, o, c = runs["b1"][key][0], runs["b4_others"][key][0], runs["b4_copies"][key][0]
+        outputs[key] = dict(
+            b1_vs_b4_max_abs_diff=(a - o).abs().max().item(), b1_equals_b4=bool(torch.equal(a, o)),
+            b4_copies_vs_others_max_abs_diff=(c - o).abs().max().item(),
+            rows_interact=not torch.equal(c, o),
+            b4_copy_rows_equal=all(torch.equal(runs["b4_copies"][key][i], c) for i in range(1, 4)),
+        )  # fmt: skip
+        if first_differs is None and not torch.equal(a, o):
+            first_differs = key
+    enc = model.params["encoder"]
+    x = others.to(model.compute_dtype)
+    conv = torch.nn.functional.conv1d(x, enc["conv1_w"], enc["conv1_b"], padding=1)
+    conv1 = torch.nn.functional.conv1d(x[:1], enc["conv1_w"], enc["conv1_b"], padding=1)
+    h = runs["b4_others"]["encode"].to(model.compute_dtype)  # any (4, 1500, d) activations
+    w = enc["blocks"]["attn_q_w"][0]
+    gemm, gemm1 = h @ w, h[:1] @ w
+    probes = dict(
+        conv1_b1_equals_b4=bool(torch.equal(conv1[0], conv[0])),
+        conv1_max_abs_diff=(conv1[0] - conv[0]).abs().float().max().item(),
+        gemm_m1500_equals_m6000=bool(torch.equal(gemm1[0], gemm[0])),
+        gemm_max_abs_diff=(gemm1[0] - gemm[0]).abs().float().max().item(),
+    )  # fmt: skip
+    rows_interact = any(v["rows_interact"] for v in outputs.values())
+    return dict(
+        first_output_that_differs=first_differs, rows_interact=rows_interact, outputs=outputs,
+        probes=probes,
+    )  # fmt: skip
+
+
+# ---- 5d: streaming at turbo width --------------------------------------------
+
+
+def segments_agree(a, b, words=False):
+    """(segments with equal tokens, of len(a)); with `words`, also the
+    largest word time difference over the segments whose words are equal
+    (inf where the word strings differ)."""
+    same = sum(x["tokens"] == y["tokens"] for x, y in zip(a, b)) if len(a) == len(b) else 0
+    d = 0.0
+    if words:
+        for x, y in zip(a, b):
+            wx, wy = x.get("words", []), y.get("words", [])
+            if [w["word"] for w in wx] != [w["word"] for w in wy]:
+                return same, float("inf")
+            for p, q in zip(wx, wy):
+                d = max(d, abs(p["start"] - q["start"]), abs(p["end"] - q["end"]))
+    return same, d
+
+
+def stream_once(model, audio, chunk_s, **kw):
+    """Feed `audio` to a StreamingTranscriber in `chunk_s` chunks and flush.
+    Returns (finals, partials, per-window records): each final window's
+    decode seconds, the latency from the start of the feed() (or flush())
+    that completed it to the return of its finals, and its mel window and
+    seek (partial decodes are timed apart)."""
+    from whisper_tpu_torch.streaming import StreamingTranscriber
+
+    st = StreamingTranscriber(model, **kw)
+    process, partial, window_mel = st._process, st.partial, st._window_mel
+    windows, partial_s, clock = [], [], {}
+
+    def timed_window_mel(avail, mel):
+        win, size = window_mel(avail, mel)
+        if not clock.get("in_partial"):
+            mel_copy = win.clone() if torch.is_tensor(win) else win.copy()
+            windows.append(dict(seek=st._seek, size=size, mel=mel_copy, t0=time.perf_counter()))
+        return win, size
+
+    def timed_process(final):
+        n = len(windows)
+        out = process(final)
+        t_end = time.perf_counter()
+        for w in windows[n:]:
+            w["latency_s"] = t_end - clock["call"]
+        done = windows[n:]
+        for w, nxt in zip(done, done[1:] + [None]):
+            w["seconds"] = (nxt["t0"] if nxt else t_end) - w["t0"]
+        return out
+
+    def timed_partial():
+        clock["in_partial"] = True
+        t0 = time.perf_counter()
+        try:
+            return partial()
+        finally:
+            clock["in_partial"] = False
+            partial_s.append(time.perf_counter() - t0)
+
+    st._window_mel, st._process, st.partial = timed_window_mel, timed_process, timed_partial
+    finals, partials = [], []
+    step = int(chunk_s * 16000)
+    for i in range(0, len(audio), step):
+        clock["call"] = time.perf_counter()
+        for seg in st.feed(audio[i : i + step]):
+            (partials if seg.get("partial") else finals).append(seg)
+    clock["call"] = time.perf_counter()
+    finals.extend(st.flush())
+    return finals, partials, windows, partial_s
+
+
+def streaming_phase(model, f32_model, audio, card):
+    """5d: the 60 s clip fed in 1 s chunks with partials every 5 s, and in
+    7 s chunks with word timestamps, greedy at T = 0: finals against
+    transcribe() of the same audio and options (bf16: agreement reported;
+    float32: equal, the gate), and each final window's mel against the
+    whole-file mel's window. Returns the launches of the two bf16 runs."""
+    from whisper_tpu_torch.ops.stft import device_mel_full, device_mel_window
+
+    full, _ = device_mel_full(audio, model.dims.n_mels, DEV)
+    launches = {}
+    for name, chunk_s, kw in [
+        ("partials_1s", 1.0, dict(language="en", temperature=0.0, partial_hop_s=5.0)),
+        ("words_7s", 7.0, dict(language="en", temperature=0.0, word_timestamps=True)),
+    ]:  # fmt: skip
+        words = kw.get("word_timestamps", False)
+        out = {}
+        (finals, partials, windows, partial_s), stats, counts, _, aligned = batch_run(
+            f"stream {name}", lambda: stream_once(model, audio, chunk_s, **kw), len(audio) / 16000,
+            replays_of="whisper_tpu_torch.streaming",
+        )  # fmt: skip
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if not finals or (words and aligned == 0):
+            raise AssertionError(f"stream {name}: no finals, or no window aligned")
+        check_segments([dict(segments=finals)], f"stream {name}")
+        ref = model.transcribe(audio, verbose=None, **{k: v for k, v in kw.items() if k != "partial_hop_s"})
+        same, d = segments_agree(finals, ref["segments"], words)
+        out["bf16"] = dict(segments=len(finals), reference_segments=len(ref["segments"]),
+                           segments_equal_to_transcribe=same, max_word_time_diff_s=d)  # fmt: skip
+        if words:
+            out["bf16"]["words"] = check_words(finals, len(audio) / 16000)
+        f_finals, _, _, _ = stream_once(f32_model, audio, chunk_s, **kw)
+        f_ref = f32_model.transcribe(audio, verbose=None, **{k: v for k, v in kw.items() if k != "partial_hop_s"})
+        same, d = segments_agree(f_finals, f_ref["segments"], words)
+        if same != len(f_ref["segments"]) or len(f_finals) != same or not d < 1e-6:
+            raise AssertionError(f"stream {name} at float32: {same} of {len(f_ref['segments'])} "
+                                 f"segments equal transcribe(), words within {d} s")  # fmt: skip
+        out["f32"] = dict(segments=len(f_finals), segments_equal_to_transcribe=same, max_word_time_diff_s=d)
+        mel_diff = [
+            (torch.as_tensor(w["mel"], device=DEV) - device_mel_window(full, w["seek"], w["size"])).abs().max().item()
+            for w in windows
+        ]
+        log(json.dumps({
+            "phase": "streaming", "run": name, "chunk_s": chunk_s, "finals": len(finals),
+            "partials": len(partials), "final_windows": len(windows),
+            "seconds_per_final_window": [w["seconds"] for w in windows],
+            "latency_from_feed_to_final_s": [w["latency_s"] for w in windows],
+            "partial_decode_s": partial_s, "windows_aligned": aligned,
+            "mel_window_vs_whole_file_max_abs_diff": mel_diff, **out, **stats, "launches": counts,
+            "card": card,
+        }))  # fmt: skip
+    return launches
+
+
+# ---- 5e: the continuous batcher at turbo width -------------------------------
+
+
+def batcher_once(model, first, later, **kw):
+    """ContinuousBatcher(slots=2): submit `first`, step once, submit
+    `later`, drain. Returns (results in submission order, stats)."""
+    from whisper_tpu_torch.continuous import ContinuousBatcher
+
+    cb = ContinuousBatcher(model, slots=2, **kw)
+    tickets = [cb.submit(a) for a in first]
+    if later:
+        cb.step()
+        tickets += [cb.submit(a) for a in later]
+    cb.drain()
+    return [cb.pop(t) for t in tickets], dict(cb.stats)
+
+
+def continuous_phase(model, f32_model, audio, jfk, card):
+    """5e: the 60 s clip and its first 23 s, one round, then its last 53 s
+    and jfk, greedy at T = 0 with conditioning; and a beam-5 run of two
+    requests. Each ticket against sequential transcribe() (bf16: agreement
+    reported; float32: equal, the gate). Returns the launches of the bf16
+    batcher runs."""
+    sr = 16000
+    launches = {}
+    for name, first, later, kw in [
+        ("greedy_staggered", [audio, audio[: 23 * sr]], [audio[7 * sr :], jfk],
+         dict(language="en", temperature=0.0)),
+        ("beam5", [jfk, audio[: 23 * sr]], [], dict(language="en", temperature=0.0, beam_size=5)),
+    ]:  # fmt: skip
+        everything = first + later
+        total_s = sum(len(a) for a in everything) / sr
+        (results, cb_stats), stats, counts, loops, _ = batch_run(
+            f"batcher {name}", lambda: batcher_once(model, first, later, **kw), total_s
+        )
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        stats["segments"] = check_segments(results, f"batcher {name}")
+        singles = [model.transcribe(a, verbose=None, **kw) for a in everything]
+        f_results, _ = batcher_once(f32_model, first, later, **kw)
+        f_singles = [f32_model.transcribe(a, verbose=None, **kw) for a in everything]
+        f_equal = [same_tokens(r, q) and r["text"] == q["text"] for r, q in zip(f_results, f_singles)]
+        if not all(f_equal):
+            raise AssertionError(f"batcher {name} at float32: tickets equal to transcribe(): {f_equal}")
+        log(json.dumps({
+            "phase": "continuous", "run": name, "requests_s": [len(a) / sr for a in everything],
+            "batcher_stats": cb_stats,
+            "bf16_tickets_equal_to_transcribe": [same_tokens(r, q) for r, q in zip(results, singles)],
+            "f32_tickets_equal_to_transcribe": f_equal, **stats, "launches": counts, "card": card,
+        }))  # fmt: skip
+    return launches
+
+
+# ---- 5f: the servers at turbo width --------------------------------------------
+
+
+def socket_request(path, payload, timeout=300.0):
+    import socket
+
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.settimeout(timeout)
+    try:
+        c.connect(path)
+        t0 = time.perf_counter()
+        c.sendall((json.dumps(payload) + "\n").encode())
+        line = c.makefile("rb").readline()
+        return json.loads(line), time.perf_counter() - t0
+    finally:
+        c.close()
+
+
+def socket_stream_pcm16(path, audio, chunk_s=1.0, timeout=300.0):
+    import base64
+    import socket
+
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.settimeout(timeout)
+    try:
+        c.connect(path)
+        f = c.makefile("rb")
+        t0 = time.perf_counter()
+        c.sendall(b'{"stream": true, "language": "en"}\n')
+        if not json.loads(f.readline()).get("ack"):
+            raise AssertionError("the stream session was not acknowledged")
+        step = int(chunk_s * 16000)
+        for i in range(0, len(audio), step):
+            raw = np.clip(audio[i : i + step] * 32768.0, -32768, 32767).astype("<i2").tobytes()
+            c.sendall((json.dumps({"pcm16": base64.b64encode(raw).decode()}) + "\n").encode())
+        c.sendall(b'{"end": true}\n')
+        lines = []
+        while True:
+            msg = json.loads(f.readline())
+            if msg.get("done") or "error" in msg:
+                return lines, msg, time.perf_counter() - t0
+            lines.append(msg)
+    finally:
+        c.close()
+
+
+def concurrently(fn, n):
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = fn()
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"a client failed: {errors}")
+    return out
+
+
+def multipart(data: bytes):
+    boundary = "smoke" + os.urandom(8).hex()
+    body = (
+        f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="jfk.flac"\r\n'
+        "Content-Type: application/octet-stream\r\n\r\n"
+    ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def http_upload(url, data, timeout=300.0):
+    import urllib.request
+
+    body, ctype = multipart(data)
+    req = urllib.request.Request(
+        f"{url}/v1/audio/transcriptions", data=body, headers={"Content-Type": ctype}, method="POST"
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read()), time.perf_counter() - t0
+
+
+def http_stream_s16(url, audio, chunk_s=1.0, timeout=300.0):
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    step = int(chunk_s * 16000)
+    chunks = (np.clip(audio[i : i + step] * 32768.0, -32768, 32767).astype("<i2").tobytes()
+              for i in range(0, len(audio), step))  # fmt: skip
+    try:
+        t0 = time.perf_counter()
+        conn.request(
+            "POST", "/v1/audio/transcriptions/stream?encoding=s16&language=en", body=chunks,
+            headers={"Transfer-Encoding": "chunked", "Content-Type": "audio/pcm"}, encode_chunked=True,
+        )  # fmt: skip
+        resp = conn.getresponse()
+        msgs = [json.loads(line) for line in resp.read().splitlines() if line.strip()]
+        return resp.status, msgs, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def servers_phase(model, jfk, card):
+    """5f: the unix-socket server (three concurrent jfk.flac clients, one
+    bad request, one pcm16 live session) and the HTTP server (three
+    concurrent uploads, /healthz, /metrics, one s16 live session), each
+    with serve_forever on a thread, greedy at T = 0. Every reply equals
+    transcribe() of its audio or the batcher's result for the same
+    requests; every server thread ends after shutdown(). Returns the
+    launches of the two servers' runs."""
+    import tempfile
+    import urllib.request
+
+    from whisper_tpu_torch.continuous import ContinuousBatcher
+    from whisper_tpu_torch.http_server import TranscriptionHTTPServer
+    from whisper_tpu_torch.server import TranscriptionServer
+
+    path = os.path.join(ROOT, "tests", "data", "jfk.flac")
+    with open(path, "rb") as f:
+        data = f.read()
+    kw = dict(language="en", temperature=0.0)
+    quantized = np.clip(jfk * 32768.0, -32768, 32767).astype(np.int16).astype(np.float32) / 32768.0
+    # the references: transcribe(), and the batcher with 1 to 3 jfk rows in a round
+    refs = {"transcribe": model.transcribe(path, verbose=None, **kw)["text"]}
+    for n in (1, 2, 3):
+        cb = ContinuousBatcher(model, slots=4, **kw)
+        tickets = [cb.submit(path) for _ in range(n)]
+        cb.drain()
+        for i, t in enumerate(tickets):
+            refs[f"batcher_B{n}_row{i}"] = cb.result(t)["text"]
+    stream_ref = model.transcribe(quantized, verbose=None, **kw)["text"]
+
+    def matches(text):
+        return [k for k, v in refs.items() if v == text]
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as d:
+        sock = os.path.join(d, "wtt.sock")
+        srv = TranscriptionServer(model, sock, slots=4, **kw)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            deadline = time.monotonic() + 60
+            while not os.path.exists(sock):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the socket server never bound its socket")
+                time.sleep(0.01)
+
+            def drive():
+                replies = concurrently(lambda: socket_request(sock, {"audio": path}), 3)
+                bad, _ = socket_request(sock, {"audio": "/nonexistent/file.flac"})
+                stream = socket_stream_pcm16(sock, quantized)
+                return replies, bad, stream
+
+            (replies, bad, (lines, done, stream_s)), stats, counts, _, _ = batch_run(
+                "socket server", drive, 3 * len(jfk) / 16000 + len(quantized) / 16000
+            )
+            add(counts)
+        finally:
+            srv.shutdown()
+            th.join(timeout=60)
+        deadline = time.monotonic() + 60
+        while any(t.is_alive() for t in srv._readers) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        alive = [t for t in srv._readers if t.is_alive()]
+        if th.is_alive() or alive:
+            raise AssertionError(f"socket server threads outlived shutdown(): {th}, {alive}")
+        if any("error" in r for r, _ in replies) or not all(matches(r["text"]) for r, _ in replies):
+            raise AssertionError(f"socket replies differ from every reference: {replies}")
+        if "error" not in bad:
+            raise AssertionError(f"the bad request got no error: {bad}")
+        if not done.get("done") or done["text"] != stream_ref:
+            raise AssertionError(f"the pcm16 session's text differs from transcribe(): {done}")
+        log(json.dumps({
+            "phase": "servers", "server": "socket", "wall_s_per_request": [s for _, s in replies],
+            "matched": [matches(r["text"]) for r, _ in replies], "bad_request": bad["error"][:80],
+            "stream_s": stream_s, "stream_segments": len(lines), "threads_joined": True,
+            **stats, "launches": counts, "card": card,
+        }))  # fmt: skip
+
+    srv = TranscriptionHTTPServer(model, "127.0.0.1", 0, slots=4, **kw)
+    url = f"http://{srv.host}:{srv.port}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+
+        def drive():
+            replies = concurrently(lambda: http_upload(url, data), 3)
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            stream = http_stream_s16(url, jfk)
+            with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            return replies, health, stream, metrics
+
+        (replies, health, (status, msgs, stream_s), metrics), stats, counts, _, _ = batch_run(
+            "http server", drive, 4 * len(jfk) / 16000
+        )
+        add(counts)
+    finally:
+        srv.shutdown()
+        th.join(timeout=60)
+    if th.is_alive() or srv._httpd_thread.is_alive():
+        raise AssertionError("HTTP server threads outlived shutdown()")
+    if not all(matches(r["text"]) for r, _ in replies):
+        raise AssertionError(f"HTTP replies differ from every reference: {replies}")
+    if health.get("ok") is not True or status != 200 or not msgs[-1].get("done"):
+        raise AssertionError(f"healthz {health}, stream status {status} last {msgs[-1:]}")
+    if msgs[-1]["text"] != stream_ref:
+        raise AssertionError(f"the s16 session's text differs from transcribe(): {msgs[-1]}")
+    values = {ln.split()[0]: float(ln.split()[1]) for ln in metrics.splitlines() if ln and ln[0] != "#"}
+    if values["wtpu_requests_completed_total"] != 3 or values["wtpu_decode_rounds_total"] < 1:
+        raise AssertionError(f"metrics: {values}")
+    log(json.dumps({
+        "phase": "servers", "server": "http", "wall_s_per_request": [s for _, s in replies],
+        "matched": [matches(r["text"]) for r, _ in replies], "stream_s": stream_s,
+        "stream_segments": len(msgs) - 1, "metrics": values, "threads_joined": True, **stats,
+        "launches": counts, "card": card,
+    }))  # fmt: skip
+    return launches
+
+
+# ---- tiny dims: streaming and the batcher, card against CPU ----------------
+
+
+def card_vs_cpu_serving():
+    """At tiny dims in float32 on the card and on the CPU with the same
+    seeded weights: StreamingTranscriber over 33 s of jfk in 7 s chunks
+    with word timestamps, and ContinuousBatcher(slots=2) with conditioning
+    over 33 s of jfk and 35 s of noise (round 2 holds two prompts): equal
+    tokens, segment and word times within 1e-6 s."""
+    dims = ModelDimensions(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    params = tiny_params(dims, seed=11)
+    gpu = Whisper(dims, params, device="cuda", compute_dtype=torch.float32)
+    cpu = Whisper(dims, params, device="cpu", compute_dtype=torch.float32)
+    jfk = load_audio(os.path.join(ROOT, "tests", "data", "jfk.flac"))
+    long_audio = np.tile(jfk, 3)
+    kw = dict(language="en", temperature=0.0, word_timestamps=True)
+    (g, _, gw, _), (c, _, cw, _) = (stream_once(m, long_audio, 7.0, **kw) for m in (gpu, cpu))
+    if [s["tokens"] for s in g] != [s["tokens"] for s in c] or not c:
+        raise AssertionError("streaming: card and CPU finals differ")
+    d = same_words(words_of(dict(segments=g)), words_of(dict(segments=c)), "streaming")
+    for a, b in zip(g, c):
+        d = max(d, abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+    if not d < 1e-6:
+        raise AssertionError(f"streaming: times differ by {d} s")
+    out = dict(streaming=dict(finals=len(c), windows=len(cw), words=len(words_of(dict(segments=c))),
+                              max_time_diff_s=d))  # fmt: skip
+    noise = (np.random.RandomState(3).randn(35 * 16000) * 0.05).astype(np.float32)
+    runs = {}
+    for model in (gpu, cpu):
+        with watch_rounds() as rounds:
+            results, _ = batcher_once(model, [long_audio, noise], [], language="en", temperature=0.0)
+        runs[model.device.type] = results, [(r["rows"], r["groups"]) for r in rounds]
+    (gres, grounds), (cres, crounds) = runs["cuda"], runs["cpu"]
+    if grounds != crounds or (2, 2) not in crounds:
+        raise AssertionError(f"batcher rounds: card {grounds}, CPU {crounds}: no round with two prompts")
+    d = 0.0
+    for i, (a, b) in enumerate(zip(gres, cres)):
+        if not same_tokens(a, b) or a["text"] != b["text"]:
+            raise AssertionError(f"batcher: ticket {i} differs on card and CPU")
+        for x, y in zip(a["segments"], b["segments"]):
+            d = max(d, abs(x["start"] - y["start"]), abs(x["end"] - y["end"]))
+    if not d < 1e-6:
+        raise AssertionError(f"batcher: segment times differ by {d} s")
+    out["continuous"] = dict(rounds=crounds, segments=[len(r["segments"]) for r in cres], max_time_diff_s=d)
+    return out
+
+
 # ---- phase 6: where a decode window's time goes --------------------------
 
 
@@ -1566,10 +2134,31 @@ def main():
                         "card": card}))  # fmt: skip
     for k, v in batch_phase(model, audio, card).items():
         launches[k] = launches.get(k, 0) + v
+    log(json.dumps({"phase": "cli", **cli_phase()}))
+
+    log(json.dumps({"phase": "bf16_rows", **bf16_rows(model, audio), "card": card}))
+    serving = {}
+
+    def add_serving(counts):
+        for k, v in counts.items():
+            serving[k] = serving.get(k, 0) + v
+            launches[k] = launches.get(k, 0) + v
+
+    t = time.perf_counter()
+    f32_model = Whisper(dims, None, device="cuda", compute_dtype=torch.float32, seed=0)
+    add_serving(streaming_phase(model, f32_model, audio, card))
+    batcher_counts = continuous_phase(model, f32_model, audio, jfk, card)
+    add_serving(batcher_counts)
+    del f32_model
+    torch.cuda.empty_cache()
+    add_serving(servers_phase(model, jfk, card))
+    log(json.dumps({"phase": "serving", "seconds": time.perf_counter() - t, "launches": serving}))
+    if batcher_counts["beam_update"] == 0 or any(n == 0 for n in serving.values()):
+        raise AssertionError(f"streaming and serving launched a kernel no time: {serving}, 5e {batcher_counts}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
-    log(json.dumps({"phase": "cli", **cli_phase()}))
+    log(json.dumps({"phase": "card_vs_cpu_serving", **card_vs_cpu_serving()}))
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     for beam_size in (None, 5):

@@ -310,3 +310,31 @@ def test_cli_matches_jax_cli(cli_inputs, tmp_path, monkeypatch, parallel):
             assert [w["word"] for w in words] == [w["word"] for w in ref_words] and words
             for x, y in zip(words, ref_words):
                 assert abs(x["start"] - y["start"]) < 1e-6 and abs(x["end"] - y["end"]) < 1e-6
+
+
+@pytest.mark.parametrize(
+    "flag, message",
+    [("--initial_prompt", "--parallel does not support --initial_prompt"),
+     ("--clip_timestamps", "--parallel does not support --clip_timestamps")],
+    ids=["initial_prompt", "clip_timestamps"],
+)  # fmt: skip
+def test_cli_parallel_refuses_unsupported_options(cli_inputs, tmp_path, monkeypatch, capsys, flag, message):
+    """--parallel True with two files refuses --initial_prompt (which
+    transcribe_batch does not take; the JAX CLI passes it on and fails with
+    a TypeError) and --clip_timestamps: a parser error, exit code 2, and no
+    file written."""
+    from whisper_tpu_torch import cli
+
+    value = "hello there" if flag == "--initial_prompt" else "1,5"
+    files = [str(cli_inputs / "a.flac"), str(cli_inputs / "b.flac")]
+    monkeypatch.setattr(
+        sys, "argv",
+        ["whisper-tpu-torch", *files, "--model", str(cli_inputs / "tiny.npz"), "--device", "cpu",
+         "--compute_dtype", "float32", "--language", "en", "--parallel", "True", flag, value,
+         "--output_dir", str(tmp_path / "out")],
+    )  # fmt: skip
+    with pytest.raises(SystemExit) as e:
+        cli.cli()
+    assert e.value.code == 2
+    assert message in capsys.readouterr().err
+    assert os.listdir(tmp_path / "out") == []

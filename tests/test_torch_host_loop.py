@@ -196,3 +196,63 @@ def test_filters_match_jax_filters(step):
         mine.apply(a, tokens)
         ref.apply(b, tokens)
         np.testing.assert_array_equal(a, b)
+
+
+# ---- the first-timestamp cap at max_initial_timestamp=None ---------------------------
+
+TS_BEGIN = 50364  # the multilingual vocabulary's first timestamp
+LATE_TS = 1000  # a first timestamp past the engine's cap at index 448 (20 s)
+
+
+@pytest.fixture(scope="module")
+def late_timestamp_checkpoint(synth_checkpoint, tmp_path_factory):
+    """The synthetic checkpoint with planted logits: the decoder's final
+    layer norm returns a constant vector b, and timestamp LATE_TS's
+    embedding is 50 b, so that every step's logits are the same and its
+    largest is that timestamp's."""
+    ckpt = torch.load(synth_checkpoint, map_location="cpu", weights_only=False)
+    sd = ckpt["model_state_dict"]
+    b = torch.from_numpy(np.random.RandomState(2).randn(sd["decoder.ln.bias"].shape[0]).astype(np.float32))
+    b /= b.norm()
+    sd["decoder.ln.weight"] = torch.zeros_like(sd["decoder.ln.weight"])
+    sd["decoder.ln.bias"] = b
+    sd["decoder.token_embedding.weight"][TS_BEGIN + LATE_TS] = 50 * b
+    path = tmp_path_factory.mktemp("planted") / "late_ts.pt"
+    torch.save(ckpt, path)
+    return str(path)
+
+
+def _first_timestamp(result):
+    return result.tokens[0] - TS_BEGIN
+
+
+@pytest.mark.parametrize("cap", [None, 0.0], ids=["none", "zero"])
+@pytest.mark.parametrize("planted", [False, True], ids=["synthetic", "planted"])
+def test_no_max_initial_timestamp_matches_jax_per_loop(
+    tpu_model, torch_model, mel, late_timestamp_checkpoint, cap, planted, monkeypatch
+):
+    """decode(max_initial_timestamp=None), and 0, which DecodingTask reads
+    as None: the port's engine equals the JAX fused engine, which caps the
+    first timestamp at index 448, and the port's host loop equals the JAX
+    host loop, which does not. With planted logits the cap binds: the host
+    loops open on timestamp 1000, the engines on one at or below 448."""
+    if planted:
+        jax_model = whisper_tpu.load_model(late_timestamp_checkpoint, compute_dtype="float32")
+        port_model = whisper_tpu_torch.load_model(
+            late_timestamp_checkpoint, device="cpu", compute_dtype=torch.float32
+        )
+    else:
+        jax_model, port_model = tpu_model, torch_model
+    kw = dict(language="en", sample_len=8, max_initial_timestamp=cap)
+    out = {}
+    for fused in (True, False):
+        monkeypatch.setattr(port_model, "use_fused_decode", fused)
+        monkeypatch.setattr(jax_model, "use_fused_decode", fused, raising=False)
+        mine = whisper_tpu_torch.decode(port_model, mel, whisper_tpu_torch.DecodingOptions(**kw))
+        ref = whisper_tpu.decode(jax_model, mel, whisper_tpu.DecodingOptions(**kw))
+        assert len(mine.tokens) > 0
+        _assert_same(mine, ref)
+        out[fused] = mine
+    if planted:
+        assert _first_timestamp(out[False]) == LATE_TS
+        assert 0 <= _first_timestamp(out[True]) <= 448

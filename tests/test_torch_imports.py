@@ -34,6 +34,8 @@ def test_import_without_jax():
         "import whisper_tpu_torch.batch, whisper_tpu_torch.frontend, whisper_tpu_torch.cli\n"
         "import whisper_tpu_torch.models.registry, whisper_tpu_torch.utils.writers\n"
         "import whisper_tpu_torch.normalizers\n"
+        "import whisper_tpu_torch.streaming, whisper_tpu_torch.continuous\n"
+        "import whisper_tpu_torch.server, whisper_tpu_torch.http_server, whisper_tpu_torch.version\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -107,4 +109,31 @@ def test_package_data_lists_the_new_modules():
     assert '"whisper_tpu_torch.normalizers"' in text
     assert '"normalizers/*.json"' in text
     assert 'whisper-tpu-torch = "whisper_tpu_torch.cli:cli"' in text
+    assert 'whisper-tpu-torch-serve = "whisper_tpu_torch.server:main"' in text
+    assert 'whisper-tpu-torch-http = "whisper_tpu_torch.http_server:main"' in text
     assert os.path.isfile(os.path.join(PKG, "normalizers", "english.json"))
+
+
+def test_public_api_and_version():
+    """The JAX package's streaming and serving exports, and its version."""
+    import whisper_tpu
+
+    for name in ("ContinuousBatcher", "StreamingTranscriber", "__version__"):
+        assert name in whisper_tpu_torch.__all__ and name in whisper_tpu.__all__
+    assert whisper_tpu_torch.__version__ == whisper_tpu.__version__
+
+
+@pytest.mark.parametrize("module", ["server", "http_server"])
+def test_servers_default_to_cuda(tmp_path, synth_checkpoint, module):
+    """The servers' main() loads the model on the card unless --device
+    says otherwise: on a machine without one that is an error, before
+    anything listens."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import importlib
+
+    main = importlib.import_module(f"whisper_tpu_torch.{module}").main
+    args = [str(tmp_path / "s.sock")] if module == "server" else ["--port", "0"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([*args, "--model", synth_checkpoint])
+    assert not os.path.exists(tmp_path / "s.sock")

@@ -1,10 +1,12 @@
 """whisper_tpu_torch: the PyTorch/CUDA port of whisper_tpu.
 
 Public API: `load_model`, `save_model`, `available_models`, `transcribe`,
-`transcribe_batch`, `transcribe_chunked`, `decode`, `DecodingOptions`,
-`DecodingResult`, `detect_language`, `log_mel_spectrogram`, `pad_or_trim`,
-`load_audio`. Models run on the CUDA card unless the caller passes another
-device (the tests pass device="cpu").
+`transcribe_batch`, `transcribe_chunked`, `StreamingTranscriber`,
+`ContinuousBatcher`, `decode`, `DecodingOptions`, `DecodingResult`,
+`detect_language`, `log_mel_spectrogram`, `pad_or_trim`, `load_audio`,
+`__version__`. The servers are `whisper_tpu_torch.server` (unix socket)
+and `whisper_tpu_torch.http_server` (HTTP). Models run on the CUDA card
+unless the caller passes another device (the tests pass device="cpu").
 """
 
 import os
@@ -15,14 +17,18 @@ import torch
 
 from .audio import load_audio, log_mel_spectrogram, pad_or_trim
 from .batch import transcribe_batch, transcribe_chunked
+from .continuous import ContinuousBatcher
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import MODEL_DIMS, ModelDimensions
 from .models.params import load_params_npz, params_from_torch_state_dict
 from .models.registry import ALIGNMENT_HEADS, available_models, download_checkpoint
 from .models.whisper import Whisper, resolve_device
+from .streaming import StreamingTranscriber
 from .transcribe import transcribe
+from .version import __version__
 
 __all__ = [
+    "ContinuousBatcher",
     "DecodingOptions",
     "DecodingResult",
     "MODEL_DIMS",
@@ -36,9 +42,11 @@ __all__ = [
     "log_mel_spectrogram",
     "pad_or_trim",
     "save_model",
+    "StreamingTranscriber",
     "transcribe",
     "transcribe_batch",
     "transcribe_chunked",
+    "__version__",
 ]
 
 

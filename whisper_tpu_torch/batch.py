@@ -19,7 +19,7 @@ CUDA model the streams' mel is one tensor on the card; on the CPU each
 stream has its host numpy mel.
 """
 
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -41,6 +41,11 @@ class _Stream:
         self.all_tokens: List[int] = []
         self.all_segments: List[dict] = []
         self.prompt_reset_since = 0
+
+    @property
+    def window_frames(self) -> int:
+        """Frames of the window at the seek: 30 s, or what is left."""
+        return min(N_FRAMES, self.content_frames - self.seek)
 
     @property
     def done(self) -> bool:
@@ -80,84 +85,148 @@ def _decode_window_batch(model, mels, prompts, lang: str, t: float, task: str, d
     return results
 
 
-def _apply_window_result(
-    model,
-    s: _Stream,
-    result: DecodingResult,
-    *,
-    language: str,
-    task: str,
-    no_speech_threshold,
-    logprob_threshold,
-    condition_on_previous_text: bool,
-    word_timestamps: bool,
-    prepend_punctuations: str,
-    append_punctuations: str,
-    input_stride: int,
-    time_precision: float,
-):
-    """One decoded window applied to its stream: the no-speech skip, the
-    segments and the next seek, word timestamps (each aligned window's
-    cross-K/V computed again from its audio features, as transcribe() does)
-    with the word-end seek, and the prompt bookkeeping."""
-    segment_size = min(N_FRAMES, s.content_frames - s.seek)
-    time_offset = float(s.seek * HOP_LENGTH / SAMPLE_RATE)
-    tokenizer = get_tokenizer(
-        model.is_multilingual, num_languages=model.num_languages, language=language, task=task
-    )
+class _Rounds:
+    """How a round's windows decode and how each result applies to its
+    stream, shared by transcribe_batch and the continuous batcher.
 
-    if no_speech_threshold is not None:
-        should_skip = result.no_speech_prob > no_speech_threshold
-        if logprob_threshold is not None and result.avg_logprob > logprob_threshold:
-            should_skip = False
-        if should_skip:
-            s.seek += segment_size
-            return
+    decode(): one group per language, each decoded at the first
+    temperature as one _decode_window_batch (one DecodingTask per distinct
+    prompt); a window that fails a quality gate falls back through the
+    temperature ladder alone, one row at a time. apply(): the no-speech
+    skip, the segments and the next seek, word timestamps (each aligned
+    window's cross-K/V computed again from its audio features, as
+    transcribe() does) with the word-end seek, and the prompt bookkeeping.
+    """
 
-    segments, s.seek, single_timestamp_ending = segments_from_tokens(
-        tokens=np.array(result.tokens),
-        tokenizer=tokenizer,
-        result=result,
-        seek=s.seek,
-        segment_size=segment_size,
-        time_offset=time_offset,
-        time_precision=time_precision,
-        input_stride=input_stride,
-        make_segment=segment_builder(tokenizer, s.seek),
-    )
+    def __init__(
+        self,
+        model,
+        *,
+        task: str,
+        temperature,
+        compression_ratio_threshold: Optional[float],
+        logprob_threshold: Optional[float],
+        no_speech_threshold: Optional[float],
+        condition_on_previous_text: bool,
+        word_timestamps: bool,
+        prepend_punctuations: str,
+        append_punctuations: str,
+        decode_options: dict,
+    ):
+        self.model = model
+        self.task = task
+        self.temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
+        self.compression_ratio_threshold = compression_ratio_threshold
+        self.logprob_threshold = logprob_threshold
+        self.no_speech_threshold = no_speech_threshold
+        self.condition_on_previous_text = condition_on_previous_text
+        self.word_timestamps = word_timestamps
+        self.prepend_punctuations = prepend_punctuations
+        self.append_punctuations = append_punctuations
+        self.decode_options = decode_options
+        self.input_stride = exact_div(N_FRAMES, model.dims.n_audio_ctx)
+        self.time_precision = self.input_stride * HOP_LENGTH / SAMPLE_RATE
 
-    if word_timestamps:
-        ck, cv = model.cross_kv(result.audio_features[None])
-        add_word_timestamps(
-            segments=segments,
-            model=model,
-            tokenizer=tokenizer,
-            num_frames=segment_size,
-            ck=ck,
-            cv=cv,
-            prepend_punctuations=prepend_punctuations,
-            append_punctuations=append_punctuations,
-            last_speech_timestamp=s.last_speech_timestamp,
+    def decode(self, streams: List[_Stream], mels, langs: List[str]) -> List[DecodingResult]:
+        """The round's results, row for row: `mels` holds one window per
+        stream of `streams`, `langs` one language."""
+        prompts = [
+            s.all_tokens[s.prompt_reset_since :] if self.condition_on_previous_text else [] for s in streams
+        ]
+        lang_groups: Dict[str, List[int]] = {}
+        for row, lang in enumerate(langs):
+            lang_groups.setdefault(lang, []).append(row)
+        results: List[Optional[DecodingResult]] = [None] * len(streams)
+        for lang, rows in lang_groups.items():
+            first = _decode_window_batch(
+                self.model, mels[rows], [prompts[r] for r in rows], lang, self.temperatures[0],
+                self.task, self.decode_options,
+            )  # fmt: skip
+            # the temperature ladder, for the windows that failed only
+            for row, r in zip(rows, first):
+                for t in self.temperatures[1:]:
+                    if not _quality_gates_failed(
+                        r, self.compression_ratio_threshold, self.logprob_threshold,
+                        self.no_speech_threshold,
+                    ):  # fmt: skip
+                        break
+                    r = _decode_window_batch(
+                        self.model, mels[row : row + 1], [prompts[row]], lang, t, self.task,
+                        self.decode_options,
+                    )[0]  # fmt: skip
+                results[row] = r
+        return results
+
+    def apply(self, s: _Stream, result: DecodingResult, language: str):
+        """One decoded window applied to its stream."""
+        model = self.model
+        segment_size = s.window_frames
+        time_offset = float(s.seek * HOP_LENGTH / SAMPLE_RATE)
+        tokenizer = get_tokenizer(
+            model.is_multilingual, num_languages=model.num_languages, language=language, task=self.task
         )
-        # resume after the last spoken word unless the window ended on a
-        # lone timestamp
-        if not single_timestamp_ending:
+
+        if self.no_speech_threshold is not None:
+            should_skip = result.no_speech_prob > self.no_speech_threshold
+            if self.logprob_threshold is not None and result.avg_logprob > self.logprob_threshold:
+                should_skip = False
+            if should_skip:
+                s.seek += segment_size
+                return
+
+        segments, s.seek, single_timestamp_ending = segments_from_tokens(
+            tokens=np.array(result.tokens),
+            tokenizer=tokenizer,
+            result=result,
+            seek=s.seek,
+            segment_size=segment_size,
+            time_offset=time_offset,
+            time_precision=self.time_precision,
+            input_stride=self.input_stride,
+            make_segment=segment_builder(tokenizer, s.seek),
+        )
+
+        if self.word_timestamps:
+            ck, cv = model.cross_kv(result.audio_features[None])
+            add_word_timestamps(
+                segments=segments,
+                model=model,
+                tokenizer=tokenizer,
+                num_frames=segment_size,
+                ck=ck,
+                cv=cv,
+                prepend_punctuations=self.prepend_punctuations,
+                append_punctuations=self.append_punctuations,
+                last_speech_timestamp=s.last_speech_timestamp,
+            )
+            # resume after the last spoken word unless the window ended on a
+            # lone timestamp
+            if not single_timestamp_ending:
+                last_word_end = get_end(segments)
+                if last_word_end is not None and last_word_end > time_offset:
+                    s.seek = round(last_word_end * (SAMPLE_RATE // HOP_LENGTH))
             last_word_end = get_end(segments)
-            if last_word_end is not None and last_word_end > time_offset:
-                s.seek = round(last_word_end * (SAMPLE_RATE // HOP_LENGTH))
-        last_word_end = get_end(segments)
-        if last_word_end is not None:
-            s.last_speech_timestamp = last_word_end
+            if last_word_end is not None:
+                s.last_speech_timestamp = last_word_end
 
-    for segment in segments:
-        if segment["start"] == segment["end"] or segment["text"].strip() == "":
-            segment["text"] = ""
-            segment["tokens"] = []
+        for segment in segments:
+            if segment["start"] == segment["end"] or segment["text"].strip() == "":
+                segment["text"] = ""
+                segment["tokens"] = []
 
-    s.all_segments.extend({"id": i, **seg} for i, seg in enumerate(segments, start=len(s.all_segments)))
-    s.all_tokens.extend(t for seg in segments for t in seg["tokens"])
-    if not condition_on_previous_text or result.temperature > 0.5:
-        s.prompt_reset_since = len(s.all_tokens)
+        s.all_segments.extend({"id": i, **seg} for i, seg in enumerate(segments, start=len(s.all_segments)))
+        s.all_tokens.extend(t for seg in segments for t in seg["tokens"])
+        if not self.condition_on_previous_text or result.temperature > 0.5:
+            s.prompt_reset_since = len(s.all_tokens)
+
+
+def _host_windows(streams: List[_Stream], sizes: List[int]) -> np.ndarray:
+    """(len(streams), n_mels, N_FRAMES) from the streams' host mels: each
+    stream's window at its seek, zero past its size."""
+    return np.stack(
+        [pad_or_trim(s.mel[:, s.seek : s.seek + size], N_FRAMES).astype(np.float32)
+         for s, size in zip(streams, sizes)]
+    )  # fmt: skip
 
 
 def transcribe_batch(
@@ -185,7 +254,6 @@ def transcribe_batch(
     nothing is printed, and it does not reach DecodingOptions."""
     if language is None:
         language = "en" if not model.is_multilingual else None
-    temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
 
     streams = []
     device_mels = None
@@ -200,20 +268,17 @@ def transcribe_batch(
             mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES)
             streams.append(_Stream(i, mel, mel.shape[-1] - N_FRAMES))
 
-    def stream_windows(active, seeks, sizes):
+    def stream_windows(active, sizes):
         """(len(active), n_mels, N_FRAMES): one window per stream of
-        `active`, zero past its size."""
+        `active`, at its seek, zero past its size."""
         if device_mels is not None:
-            return batched_mel_windows(device_mels[[s.idx for s in active]], seeks, sizes)
-        return np.stack(
-            [pad_or_trim(s.mel[:, seek : seek + size], N_FRAMES).astype(np.float32)
-             for s, seek, size in zip(active, seeks, sizes)]
-        )  # fmt: skip
+            return batched_mel_windows(device_mels[[s.idx for s in active]], [s.seek for s in active], sizes)
+        return _host_windows(active, sizes)
 
     if language is None:
         # each stream's first full window (no zero mask), as transcribe()
         # detects on mel[:, :N_FRAMES]
-        first = stream_windows(streams, [0] * len(streams), [N_FRAMES] * len(streams))
+        first = stream_windows(streams, [N_FRAMES] * len(streams))
         stream_language = []
         for i in range(len(streams)):
             _, probs = model.detect_language(first[i])
@@ -221,55 +286,27 @@ def transcribe_batch(
     else:
         stream_language = [language] * len(streams)
 
-    input_stride = exact_div(N_FRAMES, model.dims.n_audio_ctx)
-    time_precision = input_stride * HOP_LENGTH / SAMPLE_RATE
-    bookkeeping = dict(
+    rounds = _Rounds(
+        model,
         task=task,
-        no_speech_threshold=no_speech_threshold,
+        temperature=temperature,
+        compression_ratio_threshold=compression_ratio_threshold,
         logprob_threshold=logprob_threshold,
+        no_speech_threshold=no_speech_threshold,
         condition_on_previous_text=condition_on_previous_text,
         word_timestamps=word_timestamps,
         prepend_punctuations=prepend_punctuations,
         append_punctuations=append_punctuations,
-        input_stride=input_stride,
-        time_precision=time_precision,
+        decode_options=decode_options,
     )
-
     while True:
         active = [s for s in streams if not s.done]
         if not active:
             break
-        seeks = [s.seek for s in active]
-        sizes = [min(N_FRAMES, s.content_frames - s.seek) for s in active]
-        prompts = [
-            s.all_tokens[s.prompt_reset_since :] if condition_on_previous_text else [] for s in active
-        ]
-        mels = stream_windows(active, seeks, sizes)
-
-        lang_groups = {}
-        for pos, s in enumerate(active):
-            lang_groups.setdefault(stream_language[s.idx], []).append(pos)
-
-        results: List[Optional[DecodingResult]] = [None] * len(active)
-        for lang, positions in lang_groups.items():
-            first_results = _decode_window_batch(
-                model, mels[positions], [prompts[p] for p in positions], lang, temperatures[0],
-                task, decode_options,
-            )  # fmt: skip
-            # the temperature ladder, for the windows that failed only
-            for slot, r in zip(positions, first_results):
-                for t in temperatures[1:]:
-                    if not _quality_gates_failed(
-                        r, compression_ratio_threshold, logprob_threshold, no_speech_threshold
-                    ):
-                        break
-                    r = _decode_window_batch(
-                        model, mels[slot : slot + 1], [prompts[slot]], lang, t, task, decode_options
-                    )[0]
-                results[slot] = r
-
-        for s, result in zip(active, results):
-            _apply_window_result(model, s, result, language=stream_language[s.idx], **bookkeeping)
+        mels = stream_windows(active, [s.window_frames for s in active])
+        langs = [stream_language[s.idx] for s in active]
+        for s, lang, result in zip(active, langs, rounds.decode(active, mels, langs)):
+            rounds.apply(s, result, lang)
 
     return [_stream_result(model, s, stream_language[s.idx], task) for s in streams]
 

@@ -73,9 +73,10 @@ def _dft_basis(device) -> torch.Tensor:
     return torch.from_numpy(basis).to(device)
 
 
-def log_mel_spectrogram_torch(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
-    """audio: (n,) or (batch, n) float32 or int16 tensor, n % 160 == 0 ->
-    (..., n_mels, n // 160) float32 on the audio's device."""
+def log_mel_raw_torch(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """Unnormalized log10 mel on the audio's device: audio (n,) or (batch,
+    n) float32 or int16, n % 160 == 0 -> (..., n_mels, n // 160) float32,
+    before the floor at the global max minus 8."""
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) / 32768.0
     single = audio.ndim == 1
@@ -99,10 +100,21 @@ def log_mel_spectrogram_torch(audio: torch.Tensor, n_mels: int = 80) -> torch.Te
     mel = filters @ magnitudes.transpose(1, 2)  # (b, n_mels, T)
 
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
-    global_max = log_spec.amax(dim=(1, 2), keepdim=True)
-    log_spec = torch.maximum(log_spec, global_max - 8.0)
-    out = (log_spec + 4.0) / 4.0
-    return out[0] if single else out
+    return log_spec[0] if single else log_spec
+
+
+def normalize_log_mel_torch(log_spec: torch.Tensor, log_max) -> torch.Tensor:
+    """Clamp to (max - 8), then (x + 4) / 4: `log_max` a float, or a tensor
+    that broadcasts against `log_spec`."""
+    return (torch.clamp(log_spec, min=log_max - 8.0) + 4.0) / 4.0
+
+
+def log_mel_spectrogram_torch(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """audio: (n,) or (batch, n) float32 or int16 tensor, n % 160 == 0 ->
+    (..., n_mels, n // 160) float32 on the audio's device, floored at each
+    row's global max minus 8."""
+    log_spec = log_mel_raw_torch(audio, n_mels)
+    return normalize_log_mel_torch(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True))
 
 
 def pack_audio(audio, total_samples: int) -> np.ndarray:
@@ -122,17 +134,23 @@ def pack_audio(audio, total_samples: int) -> np.ndarray:
     return packed
 
 
-def device_mel_full(audio, n_mels: int, device):
-    """audio: float32 (n,) host waveform -> (device mel (n_mels, F),
-    content_frames). The waveform is zero-padded by 30 s and up to a 30 s
-    multiple (extra zeros cannot change the global max); content_frames is
-    derived from the true length. Audio representable as int16 is uploaded
-    as int16 (pack_audio)."""
+def device_mel_raw(audio, n_mels: int, device):
+    """audio: float32 (n,) host waveform -> (raw log-mel (n_mels, F) on
+    `device`, content_frames). The waveform is zero-padded by 30 s and up
+    to a 30 s multiple (extra zeros cannot change the global max);
+    content_frames is derived from the true length. Audio representable as
+    int16 is uploaded as int16 (pack_audio)."""
     n = np.asarray(audio).shape[-1]
     bucket = -(-(n + _CHUNK_SAMPLES) // _CHUNK_SAMPLES) * _CHUNK_SAMPLES
     padded = pack_audio(audio, bucket)
-    mel = log_mel_spectrogram_torch(torch.from_numpy(padded).to(device), n_mels)
-    return mel, n // HOP_LENGTH
+    return log_mel_raw_torch(torch.from_numpy(padded).to(device), n_mels), n // HOP_LENGTH
+
+
+def device_mel_full(audio, n_mels: int, device):
+    """audio: float32 (n,) host waveform -> (device mel (n_mels, F),
+    content_frames): device_mel_raw floored at its global max minus 8."""
+    raw, content_frames = device_mel_raw(audio, n_mels, device)
+    return normalize_log_mel_torch(raw, raw.amax()), content_frames
 
 
 def device_mel_window(mel: torch.Tensor, seek: int, segment_size: int) -> torch.Tensor:

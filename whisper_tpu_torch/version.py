@@ -1,0 +1,2 @@
+# the version of whisper_tpu/version.py
+__version__ = "0.1.0"
