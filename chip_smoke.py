@@ -29,7 +29,15 @@ Phases (any failure raises and the script exits non-zero):
      grid and on rows with planted NaN, +-inf and +-0: exactly equal, NaN
      where NaN (widths 3, 5 and 13 likewise on 300 rows); at T = 1499 and
      1502 and on an offset view 4 bytes past a 16-byte boundary (the
-     scalar-load build); then 1,000 back-to-back launches. Time kernel and
+     scalar-load build); then 1,000 back-to-back launches. The greedy
+     kernel's per-row-length launch (the speculative engine's): its verify
+     layout at B = 5, 10 and 20 (A = 1, 2 and 4 audios of K + 1 = 5 rows at
+     lengths n[a] + j) and its draft-step layout at B = 1, 2 and 4 (one
+     history per row at its own length, verified tokens past it), rows at
+     distinct lengths with one at sample_begin, timestamp rules on and off,
+     chunk-edge ties, offset views, 1,000 back-to-back launches; its device
+     ms beside the scalar launch's at B = 1, 2, 5 and 20 (at B = 1 on the
+     same inputs). Time kernel and
      plain version on the device (the profiler's kernel records) and per
      call with the host's work (CUDA events, median of the calls); time
      `unfold(...).median(-1)` beside the median filter, the empty kernel at
@@ -39,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      attention scores) are summed in float32 on the card and not rounded
      to bf16 (within 1e-4 of the float64 product);
   4. decode greedy and beam 5 at tiny dims in float32 on the card and on
-     the CPU with the same seeded weights: equal tokens, avg_logprob within
-     1e-3; transcribe() jfk with word timestamps on both: equal words,
+     the CPU with the same seeded weights, with the model's weights and
+     with int8 weights: equal tokens, avg_logprob within 1e-3; transcribe() jfk with word timestamps on both: equal words,
      times within 1e-6 s; and jfk, 8 s of silence, jfk twice with
      hallucination_silence_threshold=2.0: each window's segments and words
      as aligned, and the kept segments, equal (times within 1e-6 s); and
@@ -102,8 +110,30 @@ Phases (any failure raises and the script exits non-zero):
      aligned window in 5d-5f, and each kernel launches there (beam in 5e);
   card vs CPU at tiny dims: streaming finals (7 s chunks, words) and a
      batcher run with two prompts in a round, equal on card and CPU;
+  5g. int8 weights and speculative decoding at turbo width: the decoder
+     weight bytes in each mode; int8 on the card against the CPU (the
+     quantized decoder and cross-K/V equal, each int8 read of the graphs
+     on the same inputs within 1e-4, the cross-attention output within
+     1e-3; a prefill and a step's logits reported); the speculative
+     engine (a tiny-class draft with turbo's vocabulary and mels, K = 4)
+     against the plain engine on one window, with a random draft and with
+     a one-token vocabulary (every draft accepted): rounds, acceptance,
+     tokens per round, ms per token (bf16: the median of three runs after
+     an untimed one), launches (one scalar greedy launch and one per-row
+     launch per draft step and verify round, checked on every run), in
+     bf16 and at float32, where the tokens must be equal; one profiled speculative run
+     (per round: wall, device-busy, idle share, kernels, host ms of a
+     draft step, a verify pass and the round's read); transcribe() of the
+     clip and a ContinuousBatcher(slots=2) round with a draft at float32,
+     equal to the plain ones. The main path also runs the clip at T = 0
+     plainly and with the bf16 draft installed, whose launches its check
+     counts;
   6. profile one greedy window and one beam-5 window of decode() at turbo
-     width: wall time, device-busy time, kernels, the update kernel's
+     width, each with bf16 weights and then with int8 weights (launches,
+     the common prefix of their tokens, and where they part, each mode's
+     top-two gap there and the logits' difference between the modes); per
+     run: wall time,
+     device-busy time, kernels, the update kernel's
      device time and the host's blocked read of the `completed` flag, per
      step of the engine's loop;
   7. print the kernels line, the card's name and power limit, and the
@@ -114,6 +144,7 @@ Exits non-zero, printing no result, where CUDA is not available.
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import importlib
 import json
 import os
@@ -134,6 +165,7 @@ from whisper_tpu_torch import DecodingOptions, decode, load_audio, save_model  #
 from whisper_tpu_torch import batch as batch_module  # noqa: E402
 from whisper_tpu_torch import transcribe_batch, transcribe_chunked  # noqa: E402
 from whisper_tpu_torch.decoding import DecodingTask  # noqa: E402
+from whisper_tpu_torch.engine import FusedEngine  # noqa: E402
 from whisper_tpu_torch.kernels import build  # noqa: E402
 from whisper_tpu_torch.models.dims import MODEL_DIMS, ModelDimensions  # noqa: E402
 from whisper_tpu_torch.models import graphs  # noqa: E402
@@ -141,6 +173,8 @@ from whisper_tpu_torch.models.params import init_random_params  # noqa: E402
 from whisper_tpu_torch.models.whisper import Whisper  # noqa: E402
 from whisper_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from whisper_tpu_torch.ops import dtw, median  # noqa: E402
+from whisper_tpu_torch.quant import DECODER_QUANT_KEYS, quantize_cross_kv, quantize_decoder  # noqa: E402
+from whisper_tpu_torch.speculative import SpeculativeEngine  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -211,14 +245,15 @@ def device_ms(fn, reps=REPS, kernel=None, attempts=3):
     raise RuntimeError(f"the profiler recorded no CUDA kernel in {attempts} profiles")
 
 
-def kernel_ms(fn, wrapper, name, reps=REPS):
+def kernel_ms(fn, wrapper, name, reps=REPS, counter="launches"):
     """Device ms per launch of the kernel `name`: the mean of the profiler's
     records of it (the profiler may drop a few records of a short kernel),
-    after checking on the wrapper's count that each call launches it once."""
-    before = wrapper.launches
+    after checking on the wrapper's count (`counter`) that each call
+    launches it once."""
+    before = getattr(wrapper, counter)
     fn()
-    if wrapper.launches != before + 1:
-        raise AssertionError(f"{name}: {wrapper.launches - before} launches per call")
+    if getattr(wrapper, counter) != before + 1:
+        raise AssertionError(f"{name}: {getattr(wrapper, counter) - before} launches per call")
     per_call_ms, per_call = device_ms(fn, reps, kernel=name)
     if not 0 < per_call <= 1:
         raise AssertionError(f"{name}: the profiler saw {per_call} launches per call")
@@ -461,6 +496,163 @@ def check_greedy():
         bk.greedy_argmax, "greedy_argmax_kernel", err, nbytes, C,
         lambda: torch.topk(args[0], 1, dim=-1),
     )  # fmt: skip
+
+
+# (audios A, draft width K, use_ts, mode): A * (K + 1) rows, the verify
+# pass's layout (each audio's history repeated over its K + 1 positions at
+# lengths n[a] + j); A = 1, 2 and 4 give the main path's B = 5, 10 and 20
+GREEDY_ROWS_CASES = [
+    (1, 4, True, "randn"), (1, 4, False, "randn"), (1, 4, True, "ts_mass"),
+    (1, 4, True, "edge_ties"), (1, 4, False, "bf16"), (4, 4, True, "randn"),
+    (4, 4, False, "edge_ties"), (4, 4, True, "ts_mass"), (4, 4, True, "bf16"),
+    (4, 4, False, "sparse"), (4, 4, True, "masked_chunk"), (2, 4, True, "edge_ties"),
+]  # fmt: skip
+
+
+def rows_case(seed, A, K, use_ts, mode, C, W=2, at_begin=True, shift=0):
+    """A * (K + 1) rows at per-row lengths: audio a's history at length
+    n[a] + j in row a * (K + 1) + j, the lengths of the audios distinct and,
+    `at_begin`, audio 0 at SAMPLE_BEGIN (so its row 0 takes the begin
+    penalty). Audio a's history is of kind (a + shift) % 4: 1, its last
+    token a timestamp (mid pair); 2, a pair just closed; 3, a timestamp in
+    its past only; every history holds timestamps past its row's length,
+    which the rules must not read (the verified tokens a rolled-back draft
+    row has not fed again). K = 0 is the draft step's layout: A rows, one
+    history each at its own length."""
+    rng = np.random.RandomState(seed)
+    B = A * (K + 1)
+    offsets = list(rng.choice(200, A - 1, replace=False))
+    n_audio = [SAMPLE_BEGIN] + [SAMPLE_BEGIN + 1 + o for o in offsets]
+    if not at_begin:
+        n_audio[0] = SAMPLE_BEGIN + 1 + rng.choice([o for o in range(200) if o not in offsets])
+    hist = rng.randint(100, 5000, size=(A, T)).astype(np.int32)
+    for a, n in enumerate(n_audio):
+        hist[a, n + K + 2 :: 7] = TS_BEGIN + 60  # beyond every row's length
+        kind = (a + shift) % 4
+        if kind == 1:
+            hist[a, n - 1] = TS_BEGIN + 30
+        elif kind == 2:
+            hist[a, n - 2], hist[a, n - 1] = TS_BEGIN + 7, TS_BEGIN + 12
+        elif kind == 3:
+            hist[a, SAMPLE_BEGIN + 1] = TS_BEGIN + 20
+    tokens = torch.from_numpy(np.repeat(hist, K + 1, axis=0)).to(DEV)
+    lengths = np.asarray([n + j for n in n_audio for j in range(K + 1)], np.int32)
+    logits = rng.randn(B, V).astype(np.float32)
+    if mode == "ts_mass":
+        logits[:, TS_BEGIN + 40 :] += 4.0
+    elif mode == "bf16":
+        logits = bf16_rounded(logits)
+    elif mode == "edge_ties":
+        plant_edge_ties(logits, C, B, W)
+    elif mode == "masked_chunk":
+        plant_masked(logits)
+    pens = penalties(use_ts, **masks(mode, C, W))
+    n_rows = torch.from_numpy(lengths).to(DEV)
+    args = (torch.from_numpy(logits).to(DEV), tokens, n_rows, SAMPLE_BEGIN, *pens)
+    kw = dict(use_timestamps=use_ts, eot=EOT, timestamp_begin=TS_BEGIN)
+    return args, kw
+
+
+GREEDY_ROWS_OFFSET_CASES = [
+    (1, 4, True, "randn", "logits"), (4, 4, False, "edge_ties", "all"),
+    (4, 4, True, "masked_chunk", "suppress"),
+]  # fmt: skip
+
+# (rows A, use_ts, mode, a row at SAMPLE_BEGIN, history kind shift): the
+# draft steps' layout (rows_case at K = 0), one history per audio at its
+# own length p_d + 1; B = 1 is transcribe()'s draft step, B = 2 the
+# batcher's at two slots, B = 4 transcribe_batch's of four streams
+GREEDY_DRAFT_CASES = [
+    (1, True, "randn", True, 0), (1, True, "randn", False, 1), (1, True, "ts_mass", False, 2),
+    (1, True, "edge_ties", False, 3), (1, False, "bf16", False, 0), (1, True, "bf16", False, 2),
+    (1, True, "masked_chunk", True, 0), (1, False, "sparse", False, 1),
+    (1, False, "edge_ties", True, 0), (2, True, "randn", True, 0), (2, True, "ts_mass", False, 2),
+    (2, False, "edge_ties", True, 0), (2, True, "edge_ties", False, 1), (2, True, "bf16", False, 3),
+    (2, False, "sparse", True, 0), (2, True, "masked_chunk", False, 2), (4, True, "randn", True, 0),
+    (4, False, "edge_ties", False, 1),
+]  # fmt: skip
+GREEDY_DRAFT_OFFSET_CASES = [
+    (1, True, "randn", False, 1, "logits"), (1, False, "edge_ties", True, 0, "all"),
+    (2, True, "masked_chunk", False, 2, "suppress"), (2, True, "ts_mass", True, 0, "all"),
+]  # fmt: skip
+
+
+def check_greedy_rows():
+    """The per-row-length greedy launch (the speculative engine's draft
+    steps and verify pass) against the plain version on the same lengths:
+    every verify case and every draft-step case, the offset-view cases of
+    both (scalar-load build), 1,000 back-to-back launches alternating two
+    inputs; then its device ms at B = 5 and 20 (verify) and B = 1 and 2
+    (draft step) beside the scalar launch on the same logits and history
+    (all rows at one length), and the scalar launch at the main path's B =
+    1 (the row launch's B = 1 time is on the same inputs)."""
+    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+    for seed, case in enumerate(GREEDY_ROWS_CASES, 200):
+        args, kw = rows_case(seed, *case, C)
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), f"rows {case}"))
+    for seed, (*case, which) in enumerate(GREEDY_ROWS_OFFSET_CASES, 250):
+        args, kw = rows_case(seed, *case, C, W=1)
+        args = offset_inputs(args, which, 0, 4)
+        what = f"rows {case}, {which} offset"
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+    for seed, (A, use_ts, mode, at_begin, shift) in enumerate(GREEDY_DRAFT_CASES, 500):
+        args, kw = rows_case(seed, A, 0, use_ts, mode, C, at_begin=at_begin, shift=shift)
+        what = f"draft step {(A, use_ts, mode, at_begin, shift)}, lengths {args[2].tolist()}"
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+    for seed, (A, use_ts, mode, at_begin, shift, which) in enumerate(GREEDY_DRAFT_OFFSET_CASES, 550):
+        args, kw = rows_case(seed, A, 0, use_ts, mode, C, W=1, at_begin=at_begin, shift=shift)
+        args = offset_inputs(args, which, 0, 4)
+        what = f"draft step {(A, use_ts, mode, at_begin, shift)}, {which} offset"
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+    x = rows_case(301, 4, 4, True, "randn", C)
+    y = rows_case(302, 4, 4, True, "edge_ties", C)
+    for _ in range(500):
+        out_x = bk.greedy_argmax(*x[0], **x[1])
+        out_y = bk.greedy_argmax(*y[0], **y[1])
+    err = max(err, same_greedy(*x, out_x, "rows launch 999"), same_greedy(*y, out_y, "rows 1000"))
+
+    out = dict(max_abs_err=err, cluster=C, rows_ms={}, scalar_ms={})
+    for A in (1, 4):
+        args, kw = rows_case(400 + A, A, 4, True, "randn", C)
+        B = A * 5
+        scalar = (args[0], args[1], 60, *args[3:])
+        out["rows_ms"][B] = kernel_ms(
+            lambda: bk.greedy_argmax(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
+            counter="row_launches",
+        )  # fmt: skip
+        out["scalar_ms"][B] = kernel_ms(
+            lambda: bk.greedy_argmax(*scalar, **kw), bk.greedy_argmax, "greedy_argmax_kernel"
+        )
+        if A == 4:
+            # logits, suppress and begin, the histories to their lengths, lengths; tok + lp
+            n_hist = int((args[2] - SAMPLE_BEGIN + 2).sum())
+            nbytes = 4 * (B * V + 2 * V + n_hist + B) + 8 * B
+            out.update(
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=out["rows_ms"][B],
+                call_ms=call_ms(lambda: bk.greedy_argmax(*args, **kw)),
+                plain_ms=device_ms(lambda: bk.greedy_argmax_plain(*args, **kw))[0],
+                plain_call_ms=call_ms(lambda: bk.greedy_argmax_plain(*args, **kw)),
+                empty_ms=empty_ms(C, C),
+            )  # fmt: skip
+    args, kw = rows_case(402, 2, 0, True, "randn", C, at_begin=False)
+    scalar = (args[0], args[1], 60, *args[3:])
+    out["rows_ms"][2] = kernel_ms(
+        lambda: bk.greedy_argmax(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
+        counter="row_launches",
+    )  # fmt: skip
+    out["scalar_ms"][2] = kernel_ms(
+        lambda: bk.greedy_argmax(*scalar, **kw), bk.greedy_argmax, "greedy_argmax_kernel"
+    )
+    args, kw = greedy_case(99, 1, 60, True, "randn", C)
+    rows = (args[0], args[1], torch.tensor([60], dtype=torch.int32, device=DEV), *args[3:])
+    out["scalar_ms"][1] = kernel_ms(
+        lambda: bk.greedy_argmax(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel"
+    )
+    out["rows_ms"][1] = kernel_ms(
+        lambda: bk.greedy_argmax(*rows, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
+        counter="row_launches",
+    )  # fmt: skip
+    return out
 
 
 def empty_ms(grid, cluster):
@@ -939,15 +1131,20 @@ def card_vs_cpu():
     cpu = Whisper(dims, params, device="cpu", compute_dtype=torch.float32)
     mel = (np.random.RandomState(5).randn(80, 3000) * 0.6).astype(np.float32)
     out = {}
-    for name, kw in [("greedy", {}), ("beam5", dict(beam_size=5))]:
-        opts = DecodingOptions(language="en", sample_len=40, **kw)
-        g, c = decode(gpu, mel, opts), decode(cpu, mel, opts)
-        if g.tokens != c.tokens:
-            raise AssertionError(f"{name}: card tokens {g.tokens} != CPU tokens {c.tokens}")
-        d = abs(g.avg_logprob - c.avg_logprob)
-        if not d < 1e-3:
-            raise AssertionError(f"{name}: avg_logprob differs by {d}")
-        out[name] = dict(tokens=len(g.tokens), avg_logprob_diff=d)
+    # and with int8 weights (the engines' int8 decoder and cross-K/V)
+    for weights in ("", "int8"):
+        for name, kw in [("greedy", {}), ("beam5", dict(beam_size=5))]:
+            name = f"{weights}_{name}" if weights else name
+            gpu.decode_weights = cpu.decode_weights = weights
+            opts = DecodingOptions(language="en", sample_len=40, **kw)
+            g, c = decode(gpu, mel, opts), decode(cpu, mel, opts)
+            if g.tokens != c.tokens:
+                raise AssertionError(f"{name}: card tokens {g.tokens} != CPU tokens {c.tokens}")
+            d = abs(g.avg_logprob - c.avg_logprob)
+            if not d < 1e-3:
+                raise AssertionError(f"{name}: avg_logprob differs by {d}")
+            out[name] = dict(tokens=len(g.tokens), avg_logprob_diff=d)
+    gpu.decode_weights = cpu.decode_weights = ""
     # word timestamps: the same words at the same times on both
     jfk = load_audio(os.path.join(ROOT, "tests", "data", "jfk.flac"))
     kw = dict(language="en", temperature=0.0, verbose=None, word_timestamps=True)
@@ -1132,9 +1329,14 @@ def reset_launch_counts():
 
 
 def launch_counts():
+    """Each kernel's launches since the last reset: greedy_argmax's scalar
+    launches and its per-row-length ones (the speculative engine's draft
+    steps and verify passes) apart."""
     return {
-        "greedy_argmax": bk.greedy_argmax.launches, "beam_update": bk.beam_update.launches,
-        "dtw_trace": dtw.dtw_trace.launches, "median_filter": median.median_filter.launches,
+        "greedy_argmax": bk.greedy_argmax.launches,
+        "greedy_argmax_rows": bk.greedy_argmax.row_launches,
+        "beam_update": bk.beam_update.launches, "dtw_trace": dtw.dtw_trace.launches,
+        "median_filter": median.median_filter.launches,
     }  # fmt: skip
 
 
@@ -1158,44 +1360,64 @@ def check_words(segs, audio_s):
     return n
 
 
-def main_path(model, audio, **kw):
+def main_path(model, audio, draft=None, **kw):
+    """transcribe() of `audio` (with `draft` installed, if given), the counts
+    set to 0 just before it: the scalar greedy and the beam launches equal
+    the plain engine's temperature-0 updates, plus step 0 of each
+    speculative run; the per-row greedy launches equal the speculative
+    runs' draft steps and verify rounds; the word-timing kernels launch
+    once per aligned window."""
     if model._fused_engine is not None:
         model._fused_engine.history.clear()
+    model.set_draft_model(draft)
     reset_launch_counts()
     torch.cuda.synchronize()
-    with watch_replays() as replays:
-        t0 = time.perf_counter()
-        result = model.transcribe(audio, language="en", verbose=None, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with watch_replays() as replays:
+            t0 = time.perf_counter()
+            result = model.transcribe(audio, language="en", verbose=None, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spec = list(model._spec_engine.history) if model._spec_engine is not None else []
+    finally:
+        model.set_draft_model(None)
     launches = launch_counts()
-    runs = list(model._fused_engine.history)
+    runs = list(model._fused_engine.history) if model._fused_engine is not None else []
     t0_greedy = sum(r[2] for r in runs if not r[0] and r[1] == 0.0)
     t0_beam = sum(r[2] for r in runs if r[0] and r[1] == 0.0)
     aligned = sum(r["aligned"] for r in replays)
     replay_s = sum(r["seconds"] for r in replays)
-    want = {"greedy_argmax": t0_greedy, "beam_update": t0_beam, "dtw_trace": aligned,
-            "median_filter": aligned}  # fmt: skip
+    want = {"greedy_argmax": t0_greedy + len(spec),
+            "greedy_argmax_rows": sum(r[1] + r[2] for r in spec), "beam_update": t0_beam,
+            "dtw_trace": aligned, "median_filter": aligned}  # fmt: skip
     if launches != want:
         raise AssertionError(f"launches {launches} != T=0 updates and aligned windows {want}")
+    if draft is not None and not spec:
+        raise AssertionError("the run with a draft never reached the speculative engine")
     segs = result["segments"]
     values = [v for s in segs for v in (s["start"], s["end"], s["avg_logprob"])]
     if not np.isfinite(values).all() or (not segs and "hallucination_silence_threshold" not in kw):
         raise AssertionError("transcribe() returned no or non-finite segments")
     if segs and segs[-1]["end"] > len(audio) / 16000 + 30:
         raise AssertionError("segments end past the clip")
-    steps = sum(r[2] for r in runs)
-    decode_s = sum(r[3] for r in runs)
+    # a speculative run counts its tokens decoded, as a plain run its steps
+    steps = sum(r[2] for r in runs) + sum(r[3] for r in spec)
+    decode_s = sum(r[3] for r in runs) + sum(r[4] for r in spec)
     stats = dict(
         wall_s=wall,
         rtfx=len(audio) / 16000 / wall,
-        windows_decoded=len(runs),
+        windows_decoded=len(runs) + len(spec),
         decode_steps=steps,
         decode_s=decode_s,
         ms_per_token=decode_s / steps * 1e3,
         segments=len(segs),
         temperatures=sorted({r[1] for r in runs}),
     )
+    if spec:
+        stats.update(
+            spec_windows=len(spec), draft_steps=sum(r[1] for r in spec),
+            verify_rounds=sum(r[2] for r in spec), tokens_decoded=sum(r[3] for r in spec),
+        )  # fmt: skip
     if kw.get("word_timestamps"):
         if aligned == 0:
             raise AssertionError("the word-timestamp run aligned no window")
@@ -1273,6 +1495,7 @@ def batch_run(name, fn, audio_s, replays_of="whisper_tpu_torch.batch"):
     aligned = sum(r["aligned"] for r in replays)
     want = {
         "greedy_argmax": sum(lp["steps"] for lp in fused_t0 if not lp["beam"]),
+        "greedy_argmax_rows": 0,
         "beam_update": sum(lp["steps"] for lp in fused_t0 if lp["beam"]),
         "dtw_trace": aligned, "median_filter": aligned,
     }  # fmt: skip
@@ -2012,6 +2235,424 @@ def card_vs_cpu_serving():
 # ---- phase 6: where a decode window's time goes --------------------------
 
 
+# ---- 5g: int8 weights and speculative decoding at turbo width ----------------
+
+
+def spec_draft(dtype):
+    """The draft of 5g: tiny's dimensions with turbo's vocabulary (as the
+    JAX package's tools/spec_bench.py pins it) and turbo's 128 mels (so that
+    transcribe() feeds both models one mel), seeded random weights."""
+    turbo = MODEL_DIMS["turbo"]
+    dims = dataclasses.replace(MODEL_DIMS["tiny"], n_vocab=turbo.n_vocab, n_mels=turbo.n_mels)
+    return Whisper(dims, None, device=DEV, compute_dtype=dtype, seed=1)
+
+
+def first_window(model, audio):
+    """The clip's first 30 s mel window on the card, (n_mels, 3000)."""
+    from whisper_tpu_torch.ops.stft import device_mel_full, device_mel_window
+
+    mel, _ = device_mel_full(audio, model.dims.n_mels, DEV)
+    return device_mel_window(mel, 0, 3000)
+
+
+def engine_call(model, window, opts):
+    """The arguments (initial tokens, cK, cV) and keywords of the engine run
+    that decode(model, window, opts) makes, with the result of decode()."""
+    from whisper_tpu_torch import engine as engine_module
+
+    calls = []
+    run = engine_module.FusedEngine.run
+
+    def watched(self, *args, **kw):
+        calls.append((args, kw))
+        return run(self, *args, **kw)
+
+    engine_module.FusedEngine.run = watched
+    try:
+        result = decode(model, window, opts)
+    finally:
+        engine_module.FusedEngine.run = run
+    return calls[-1], result
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_bracket(model, draft, window, only_token=None, k=4, reps=3):
+    """The plain engine and the speculative engine (draft `draft`, K = k) on
+    one greedy window at T = 0: each run once untimed, then `reps` timed
+    runs of each, alternating, and the median wall reported (reps = 1: no
+    untimed run, for the float32 gate, whose point is the tokens). With
+    `only_token`, every other id is suppressed and timestamps are off: every
+    draft is accepted (the upper bracket); else the window decodes as
+    transcribe() would (timestamps on). The counts are set to 0 just before
+    each timed speculative run and checked after it: one scalar greedy
+    launch (step 0) and one per-row launch per draft step and per verify
+    round."""
+    opts = DecodingOptions(language="en", temperature=0.0, without_timestamps=only_token is not None)
+    (args, kw), _ = engine_call(model, window, opts)
+    if only_token is not None:
+        kw = dict(kw, suppress_ids=[i for i in range(model.dims.n_vocab) if i != only_token],
+                  blank_ids=[])  # fmt: skip
+    _, dck, dcv = draft.encode_with_cross_kv(window[None])
+    plain, spec = FusedEngine(model), SpeculativeEngine(model, draft, k=k)
+    if reps > 1:
+        plain.run(*args, **kw)
+        spec.run(*args, dck, dcv, **kw)
+    p_walls, s_walls = [], []
+    for _ in range(reps):
+        p_out, p_wall = timed(lambda: plain.run(*args, **kw))
+        reset_launch_counts()
+        s_out, s_wall = timed(lambda: spec.run(*args, dck, dcv, **kw))
+        counts = launch_counts()
+        launches, draft_steps, rounds, decoded, _ = spec.history[-1]
+        want = dict(greedy_argmax=1, greedy_argmax_rows=draft_steps + rounds, beam_update=0,
+                    dtw_trace=0, median_filter=0)  # fmt: skip
+        if counts != want or launches != 1 + draft_steps + rounds:
+            raise AssertionError(f"speculative run: launches {counts} != {want}")
+        p_walls.append(p_wall)
+        s_walls.append(s_wall)
+    p_wall, s_wall = statistics.median(p_walls), statistics.median(s_walls)
+    steps = plain.history[-1][2]
+    n, ni = int(p_out[1]), args[0].shape[-1]  # decoded tokens from ni
+    stats = spec.last_stats
+    return dict(
+        k=k, tokens_equal=int(s_out[1]) == n and bool(np.array_equal(s_out[0], p_out[0])),
+        common_prefix=common_prefix(s_out[0][0, ni:n], p_out[0][0, ni : int(s_out[1])]),
+        plain_steps=steps, plain_wall_s=p_wall, plain_ms_per_token=p_wall / steps * 1e3,
+        spec_tokens=decoded, rounds=rounds, draft_steps=draft_steps,
+        acceptance=stats["draft_acceptance"][0], tokens_per_round=decoded / max(rounds, 1),
+        spec_wall_s=s_wall, spec_ms_per_token=s_wall / decoded * 1e3,
+        speedup=(p_wall / steps) / (s_wall / decoded), launches=counts, warm_up=reps > 1,
+        plain_wall_s_runs=p_walls, spec_wall_s_runs=s_walls,
+    ), (spec, args, dck, dcv, kw)
+
+
+def common_prefix(a, b) -> int:
+    n = min(len(a), len(b))
+    diff = np.nonzero(np.asarray(a[:n]) != np.asarray(b[:n]))[0]
+    return int(diff[0]) if len(diff) else n
+
+
+def spec_profile(spec, args, dck, dcv, kw, sample_len=24):
+    """One profiled speculative run (sample_len tokens): per round, the
+    profiled wall, the device-busy time (the union of the kernels'
+    intervals) and idle share, and the kernels; per range of the loop
+    (draft step, verify pass, the round's read), its host ms and the device
+    ms of the kernels inside its span on the card's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(kw, sample_len=sample_len)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spec.run(*args, dck, dcv, **kw)
+        torch.cuda.synchronize()
+    host, device, spans = {}, {}, []
+    for e in prof.events():
+        cuda = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name.startswith("spec_"):  # a range: on the host, and its span on the card
+            (device if cuda else host).setdefault(e.name, []).append(e.time_range)
+        elif cuda:
+            spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+
+    def busy_us(lo, hi):
+        busy, end = 0.0, lo
+        for start, stop in spans:
+            start, stop = max(start, end), min(stop, hi)
+            if stop > start:
+                busy, end = busy + stop - start, stop
+        return busy
+
+    reads = host["spec_read"]
+    lo, hi = min(r.start for r in reads), max(r.end for r in reads)
+    rounds = spec.history[-1][2]
+    busy = busy_us(lo, hi)
+    out = dict(
+        sample_len=sample_len, rounds=rounds, draft_steps=spec.history[-1][1],
+        profiled_ms_per_round=(hi - lo) / rounds / 1e3,
+        device_busy_ms_per_round=busy / rounds / 1e3, device_idle_share=1 - busy / (hi - lo),
+        kernels_per_round=sum(lo <= a < hi for a, _ in spans) / rounds,
+    )  # fmt: skip
+    for name, rs in host.items():
+        out[f"host_ms_{name[5:]}"] = statistics.mean(r.elapsed_us() for r in rs) / 1e3
+    for name, rs in device.items():
+        out[f"device_ms_{name[5:]}"] = statistics.mean(busy_us(r.start, r.end) for r in rs) / 1e3
+    return out
+
+
+def decoder_weight_bytes(model):
+    """The bytes of the decoder weights the loop reads per step in each mode:
+    the eight block products and the embedding, bf16 against int8 with its
+    scales."""
+    eng = FusedEngine(model, weights="int8")
+    dec, q = model.params["decoder"], eng._decoder_params()
+    plain = [dec["blocks"][k] for k in DECODER_QUANT_KEYS] + [dec["tok_emb"]]
+    int8 = [q["blocks"][k + s] for k in DECODER_QUANT_KEYS for s in ("", "@scale")]
+    int8 += [q["tok_emb"], q["tok_emb@scale"]]
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    return dict(bf16_bytes=size(plain), int8_bytes=size(int8),
+                params=sum(t.numel() for t in plain))  # fmt: skip
+
+
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+# the int8 reads on the card against the CPU, on inputs that are the same
+# bits on both sides: only the order of the float32 sums differs. The
+# cross-attention output goes through one more bf16 rounding (the cross_o
+# product's operand), where a one-ulp float32 difference can round to the
+# other bf16 neighbour and move an output by |w| * 2^-8 * |x|
+INT8_OPS_TOL = 1e-4
+INT8_CROSS_OUT_TOL = 1e-3
+
+
+def int8_reads(dec, ckv, gen_seed, dev):
+    """Each int8 read of the graphs at turbo width on `dev`, on seeded
+    bf16-exact inputs: the eight block products of layer 0 (_dot), the
+    token embedding, the logits head and layer 0's cross-attention (its
+    layer norm's gain zero and bias bf16-exact, so that the query input is
+    exact too): name -> float32 tensor on the CPU."""
+    gen = torch.Generator().manual_seed(gen_seed)
+    exact = lambda *shape: torch.randn(*shape, generator=gen).bfloat16().float().to(dev)  # noqa: E731
+    blk = graphs._layer(dec, 0)
+    out = {}
+    with torch.inference_mode():
+        for key in DECODER_QUANT_KEYS:
+            out[key] = graphs._dot(exact(5, 1, blk[key].shape[0]), blk, key)
+        ids = torch.arange(0, dec["tok_emb"].shape[0], 997, device=dev)
+        out["tok_embedding"] = graphs.tok_embedding(dec, ids, torch.float32)
+        out["hidden_to_logits"] = graphs.hidden_to_logits(dec, exact(5, dec["tok_emb"].shape[1]))
+        d = blk["cross_ln_b"].shape[0]
+        blk = dict(blk, cross_ln_g=torch.zeros(d, device=dev), cross_ln_b=exact(d))
+        ck, cv = (graphs.ckv_layer(t, 0) for t in ckv)
+        n_head = ck[0].shape[1]
+        out["cross_attention"], out["cross_scores"] = graphs._cross_attention(
+            exact(1, 5, d), blk, ck, cv, n_head, return_scores=True
+        )  # fmt: skip
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def int8_card_vs_cpu(f32_model, audio):
+    """int8 at turbo width on the card against the CPU: the float32 model's
+    decoder and the card's cross-K/V of the clip's first window, copied to
+    the CPU and quantized on each side (int8 leaves equal, scales within
+    one ulp); each int8 read of the graphs on the same inputs (int8_reads:
+    within INT8_OPS_TOL, the cross-attention output within
+    INT8_CROSS_OUT_TOL, the embedding rows exactly); and, reported, one
+    prefill over the prompt (sot, en, transcribe) and one decode_step of a
+    text token after it, with int8 weights and with the plain float32
+    weights: the logits' largest difference between card and CPU and
+    whether the argmax agrees (in int8 every product rounds its activation
+    to bf16, so a summation-order difference that crosses one rounding
+    midpoint carries on through the layers)."""
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    dims = f32_model.dims
+    _, ck, cv = f32_model.encode_with_cross_kv(first_window(f32_model, audio)[None])
+    dec = f32_model.params["decoder"]
+    plain = {"card": (dec, ck, cv), "cpu": (to_cpu(dec), ck.cpu(), cv.cpu())}
+    int8 = {side: (quantize_decoder(d), *quantize_cross_kv(k, v)) for side, (d, k, v) in plain.items()}
+    (dg, kg, vg), (dc, kc, vc) = int8["card"], int8["cpu"]
+    pairs = list(zip(leaves(dg), leaves(dc))) + [
+        ((f"cross_{n}", a), (f"cross_{n}", b)) for n, x, y in (("k", kg, kc), ("v", vg, vc))
+        for a, b in zip(x, y)
+    ]  # fmt: skip
+    scale_rel = 0.0
+    for (name, a), (_, b) in pairs:
+        a = a.cpu()
+        if a.dtype == torch.int8:
+            if not torch.equal(a, b):
+                raise AssertionError(f"int8 {name}: the card's quantization differs from the CPU's")
+        elif "@scale" in name or name.startswith("cross_"):
+            rel = ((a - b).abs() / b.abs()).max().item()
+            if not rel <= 2**-23:
+                raise AssertionError(f"int8 {name}: scales differ by {rel} relative")
+            scale_rel = max(scale_rel, rel)
+    out = dict(scales_max_rel_diff=scale_rel, reads={})
+    reads = [int8_reads(dq, (k, v), 5, dev) for (dq, k, v), dev in ((int8["card"], DEV),
+                                                                    (int8["cpu"], "cpu"))]
+    for name, a in reads[0].items():
+        err = (a - reads[1][name]).abs().max().item()
+        tol = 0.0 if name == "tok_embedding" else (
+            INT8_CROSS_OUT_TOL if name == "cross_attention" else INT8_OPS_TOL)
+        if not err <= tol:
+            raise AssertionError(f"int8 {name} on the card differs from the CPU's by {err} > {tol}")
+        out["reads"][name] = dict(max_abs_diff=err, abs_max=a.abs().max().item(), tol=tol)
+    prompt = get_tokenizer(True, num_languages=f32_model.num_languages, language="en",
+                           task="transcribe").sot_sequence  # fmt: skip
+    n, L, d = len(prompt), dims.n_text_layer, dims.n_text_state
+    for mode, sides in (("float32", plain), ("int8", int8)):
+        logits = {}
+        for side, (dt, k, v) in sides.items():
+            dev = DEV if side == "card" else torch.device("cpu")
+            toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                hidden, kv = graphs.prefill(dt, toks, n, k, v, n_head=dims.n_text_head)
+                first = graphs.hidden_to_logits(dt, hidden[:, n - 1])
+                cache = torch.zeros((L, 2, 1, graphs.CACHE_SLOTS, d), dtype=kv.dtype, device=dev)
+                cache[:, :, :, :n] = kv
+                nxt = torch.tensor([1000], dtype=torch.int32, device=dev)
+                step, _ = graphs.decode_step(dt, nxt, n, cache, None, k, v, n_head=dims.n_text_head)
+            logits[side] = torch.cat([first, step]).cpu()
+        out[f"pass_{mode}"] = dict(
+            max_abs_diff=(logits["card"] - logits["cpu"]).abs().max().item(),
+            logits_abs_max=logits["cpu"].abs().max().item(),
+            argmax_equal=torch.equal(logits["card"].argmax(-1), logits["cpu"].argmax(-1)),
+        )  # fmt: skip
+    return out
+
+
+def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
+    """5g. The decoder weight bytes of each weights mode (int8's loop
+    profiles run beside phase 6's); the speculative engine (bf16 draft
+    `draft`) against the plain engine on one window, a random draft (the
+    lower bracket) and a one-token vocabulary (every draft accepted, the
+    upper bracket), in bf16 (timed, agreement recorded) and at float32
+    (tokens equal, the gate), and one profiled speculative run;
+    transcribe() of the clip and a ContinuousBatcher(slots=2) round with a
+    draft at float32, equal to the plain ones (the gate)."""
+    log(json.dumps({"phase": "int8_weights", **decoder_weight_bytes(model), "card": card}))
+    t = time.perf_counter()
+    log(json.dumps({"phase": "int8_card_vs_cpu", **int8_card_vs_cpu(f32_model, audio),
+                    "seconds": time.perf_counter() - t}))  # fmt: skip
+    t = time.perf_counter()
+    f32_draft = spec_draft(torch.float32)
+    window = first_window(model, audio)
+    only = 1000  # a text id: every other id suppressed
+    for name, kw in [("random_draft", {}), ("all_accepted", dict(only_token=only))]:
+        stats, run = spec_bracket(model, draft, window, **kw)
+        log(json.dumps({"phase": "spec", "bracket": name, "dtype": "bf16", **stats, "card": card}))
+        full = -(-(stats["spec_tokens"] - 1) // (stats["k"] + 1))  # every round K + 1 tokens
+        if name == "all_accepted" and stats["rounds"] != full:
+            raise AssertionError(f"the one-token vocabulary took {stats['rounds']} rounds, not {full}")
+        if name == "random_draft":
+            log(json.dumps({"phase": "spec_profile", "bracket": name, **spec_profile(*run),
+                            "card": card}))  # fmt: skip
+        f32_stats, _ = spec_bracket(
+            f32_model, f32_draft, first_window(f32_model, audio), reps=1, **kw
+        )
+        log(json.dumps({"phase": "spec", "bracket": name, "dtype": "float32", **f32_stats,
+                        "card": card}))  # fmt: skip
+        if not f32_stats["tokens_equal"]:
+            raise AssertionError(f"{name} at float32: speculative tokens differ from plain greedy")
+    log(json.dumps({"phase": "spec_brackets", "seconds": time.perf_counter() - t}))
+    t = time.perf_counter()
+
+    # the product paths at float32: transcribe() and one batcher round
+    kw = dict(language="en", temperature=0.0, verbose=None)
+    (plain, p_wall), (spec, s_wall) = [
+        with_draft(f32_model, d, lambda: timed(lambda: f32_model.transcribe(audio, **kw)))
+        for d in (None, f32_draft)
+    ]  # fmt: skip
+    if spec["text"] != plain["text"] or not same_tokens(spec, plain):
+        raise AssertionError("transcribe() with a draft at float32 differs from plain")
+    requests = [jfk, audio[: 23 * 16000]]
+    (b_plain, _), (b_spec, _) = [
+        with_draft(f32_model, d, lambda: batcher_once(f32_model, requests, [], language="en",
+                                                      temperature=0.0))
+        for d in (None, f32_draft)
+    ]  # fmt: skip
+    b_equal = [same_tokens(a, b) and a["text"] == b["text"] for a, b in zip(b_spec, b_plain)]
+    if not all(b_equal):
+        raise AssertionError(f"the batcher with a draft at float32 differs from plain: {b_equal}")
+    log(json.dumps({
+        "phase": "spec_paths", "dtype": "float32", "transcribe_equal": True,
+        "transcribe_wall_s": [p_wall, s_wall], "batcher_tickets_equal": b_equal,
+        "seconds": time.perf_counter() - t, "card": card,
+    }))  # fmt: skip
+
+
+def int8_profile(model, audio, beam_size, bf16_tokens):
+    """decode_loop_profile of the window with int8 weights (the loop profile
+    of the same window in bf16 runs just before it), its launches, and the
+    common prefix of its tokens with bf16's."""
+    model.decode_weights = "int8"
+    reset_launch_counts()
+    try:
+        prof = decode_loop_profile(model, audio, beam_size)
+    finally:
+        model.decode_weights = ""
+    tokens = prof.pop("tokens")
+    return dict(
+        weights="int8", **prof, launches=launch_counts(),
+        tokens=[len(bf16_tokens), len(tokens)], common_prefix=common_prefix(bf16_tokens, tokens),
+        parting=parting_read(model, audio, bf16_tokens, tokens),
+    )  # fmt: skip
+
+
+def parting_read(model, audio, bf16_tokens, int8_tokens):
+    """Where the int8 tokens first part from the bf16 tokens of the same
+    window: each mode's filtered log-probs at that position given the
+    common prefix, from one prefill over it (greedy's filters and
+    penalties): its pick, the gap between its top two, and the log-prob it
+    gives each mode's token; beside them the largest and the typical
+    (standard deviation) difference of the raw logits between the modes,
+    and the spread of bf16's logits. None where neither parts."""
+    p = common_prefix(bf16_tokens, int8_tokens)
+    if p >= min(len(bf16_tokens), len(int8_tokens)):
+        return None
+    window = first_window(model, audio)
+    (args, kw), _ = engine_call(model, window, DecodingOptions(language="en", temperature=0.0))
+    initial, ck, cv = args
+    initial = np.asarray(initial).reshape(-1)  # one audio
+    ni = len(initial)
+    n = ni + p
+    toks = torch.zeros((1, graphs.CACHE_SLOTS), dtype=torch.int32, device=DEV)
+    toks[0, :n] = torch.from_numpy(np.concatenate([initial, bf16_tokens[:p]]).astype(np.int32))
+    filt = dict(use_timestamps=kw["use_timestamps"], eot=kw["eot"],
+                timestamp_begin=kw["timestamp_begin"])  # fmt: skip
+    max_ts = kw["max_initial_ts_index"]
+    pens = FusedEngine(model)._penalties(
+        kw["suppress_ids"], kw["blank_ids"], use_timestamps=kw["use_timestamps"],
+        no_timestamps=kw["no_timestamps"], timestamp_begin=kw["timestamp_begin"],
+        max_initial_ts_index=graphs.CACHE_SLOTS if max_ts is None else max_ts,
+    )  # fmt: skip
+    pair = (int(bf16_tokens[p]), int(int8_tokens[p]))
+    out, logits = dict(position=p, tokens=list(pair)), {}
+    for mode in ("bf16", "int8"):
+        dec = FusedEngine(model, weights=mode)._decoder_params()
+        kv = quantize_cross_kv(ck, cv) if mode == "int8" else (ck, cv)
+        with torch.inference_mode():
+            hidden, _ = graphs.prefill(dec, toks[:, :n], n, *kv, n_head=model.dims.n_text_head)
+            lg = graphs.hidden_to_logits(dec, hidden[:, n - 1])
+            lp = torch.log_softmax(bk.apply_filters(lg, toks, n, ni, *pens, **filt), dim=-1)[0]
+        top = lp.topk(2)
+        out[mode] = dict(
+            pick=int(top.indices[0]), top2_gap=(top.values[0] - top.values[1]).item(),
+            logprob_of_tokens=[lp[t].item() for t in pair],
+        )  # fmt: skip
+        logits[mode] = lg[0]
+    diff = logits["int8"] - logits["bf16"]
+    out.update(
+        logit_diff_max=diff.abs().max().item(), logit_diff_std=diff.std().item(),
+        bf16_logit_std=logits["bf16"].std().item(),
+    )  # fmt: skip
+    return out
+
+
+def with_draft(model, draft, fn):
+    """fn() with `draft` installed on `model` (None: none), then removed."""
+    model.set_draft_model(draft)
+    try:
+        return fn()
+    finally:
+        model.set_draft_model(None)
+
+
 def decode_loop_profile(model, audio, beam_size=None):
     """One window of decode() at the model's width, greedy or beam search:
     the engine's wall ms per step (host clock, unprofiled runs) and, from a
@@ -2022,21 +2663,18 @@ def decode_loop_profile(model, audio, beam_size=None):
     (`aten::_local_scalar_dense`, the read of the `completed` flag)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from whisper_tpu_torch.ops.stft import device_mel_full, device_mel_window
-
-    mel, _ = device_mel_full(audio, model.dims.n_mels, DEV)
-    window = device_mel_window(mel, 0, 3000)
+    window = first_window(model, audio)
     opts = DecodingOptions(language="en", temperature=0.0, beam_size=beam_size)
     update = "beam_update_kernel" if beam_size else "greedy_argmax_kernel"
-    engine_runs = model._fused_engine.history
     walls = []
     for _ in range(3):
         decode(model, window, opts)
-        _, _, steps, seconds = engine_runs[-1]
+        # the engine of the model's weights mode (decode() may build it)
+        _, _, steps, seconds = model._fused_engine.history[-1]
         walls.append(seconds / steps * 1e3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode(model, window, opts)
+        result = decode(model, window, opts)
         torch.cuda.synchronize()
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
@@ -2076,6 +2714,7 @@ def decode_loop_profile(model, audio, beam_size=None):
         update_ms_per_step=sum(b - a for a, b, _ in updates) / len(updates) / 1e3,
         host_reads_per_step=len(reads) / n,
         host_read_ms_per_step=sum(r.elapsed_us() for r in reads) / n / 1e3,
+        tokens=result.tokens,
     )
 
 
@@ -2094,8 +2733,8 @@ def main():
     log("\n".join(line for line in build.build_log.splitlines() if "Used" in line))
 
     kernels = {
-        "greedy_argmax": check_greedy(), "beam_update": check_beam(), "dtw_trace": check_dtw(),
-        "median_filter": check_median(),
+        "greedy_argmax": check_greedy(), "greedy_argmax_rows": check_greedy_rows(),
+        "beam_update": check_beam(), "dtw_trace": check_dtw(), "median_filter": check_median(),
     }  # fmt: skip
     log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
     log(json.dumps({"phase": "f32_products", **f32_products()}))
@@ -2116,6 +2755,7 @@ def main():
     jfk = load_audio(os.path.join(ROOT, "tests", "data", "jfk.flac"))
     audio = np.tile(jfk, 6)[: 60 * 16000]
     model.transcribe(audio[: 16000 * 5], language="en", temperature=0.0, verbose=None)  # warm-up
+    draft = spec_draft(torch.bfloat16)
 
     launches = {}
     np.random.seed(0)  # the sampling seeds of the temperature ladder
@@ -2126,6 +2766,8 @@ def main():
         ("beam5_t0", audio, dict(beam_size=5, temperature=0.0)),
         ("words_greedy_t0", audio, words),
         ("words_silence_skip", audio[: 20 * 16000], silence),
+        ("greedy_t0", audio, dict(temperature=0.0)),
+        ("greedy_t0_draft", audio, dict(temperature=0.0, draft=draft)),
     ]:  # fmt: skip
         stats, counts = main_path(model, clip, **kw)
         for k, v in counts.items():
@@ -2153,20 +2795,32 @@ def main():
     torch.cuda.empty_cache()
     add_serving(servers_phase(model, jfk, card))
     log(json.dumps({"phase": "serving", "seconds": time.perf_counter() - t, "launches": serving}))
-    if batcher_counts["beam_update"] == 0 or any(n == 0 for n in serving.values()):
+    if batcher_counts["beam_update"] == 0 or any(
+        n == 0 for k, n in serving.items() if k != "greedy_argmax_rows"
+    ):
         raise AssertionError(f"streaming and serving launched a kernel no time: {serving}, 5e {batcher_counts}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
+    t = time.perf_counter()
+    f32_model = Whisper(dims, None, device="cuda", compute_dtype=torch.float32, seed=0)
+    int8_spec_phase(model, draft, f32_model, audio, jfk, card)
+    del f32_model
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "int8_spec", "seconds": time.perf_counter() - t}))
     log(json.dumps({"phase": "card_vs_cpu_serving", **card_vs_cpu_serving()}))
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     for beam_size in (None, 5):
         profile = decode_loop_profile(model, audio, beam_size)
+        tokens = profile.pop("tokens")
         log(json.dumps({"phase": "loop_profile", **profile, "card": card}))
+        log(json.dumps({"phase": "int8_vs_bf16", **int8_profile(model, audio, beam_size, tokens),
+                        "card": card}))  # fmt: skip
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
+        "greedy_argmax_rows": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "beam_update": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
         "dtw_trace": ("dtw.cu", "whisper_tpu/ops/pallas_kernels.py:138"),
         "median_filter": ("median_filter.cu", "whisper_tpu/ops/pallas_kernels.py:210"),
@@ -2179,7 +2833,8 @@ def main():
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r.get("library_ms"),
-                **{k: r[k] for k in ("cluster", "call_ms", "empty_ms", "chain_floor_ms") if k in r},
+                **{k: r[k] for k in ("cluster", "call_ms", "empty_ms", "chain_floor_ms", "rows_ms",
+                                     "scalar_ms") if k in r},
             }  # fmt: skip
             for name, r in kernels.items()
         ]

@@ -36,6 +36,7 @@ def test_import_without_jax():
         "import whisper_tpu_torch.normalizers\n"
         "import whisper_tpu_torch.streaming, whisper_tpu_torch.continuous\n"
         "import whisper_tpu_torch.server, whisper_tpu_torch.http_server, whisper_tpu_torch.version\n"
+        "import whisper_tpu_torch.quant, whisper_tpu_torch.speculative\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

@@ -47,6 +47,23 @@ def test_params_from_jax_matches_pt_load(torch_model, tpu_model):
     _assert_trees_equal(torch_model.params, params_from_jax(tpu_model.params))
 
 
+def test_params_from_jax_carries_a_quantized_tree(tpu_model):
+    """A JAX quantize_decoder tree comes over with its int8 leaves int8 and
+    its '@scale' leaves float32, values equal; the other leaves as float32."""
+    from whisper_tpu.quant import quantize_decoder
+
+    qtree = quantize_decoder(tpu_model.params["decoder"])
+    port = params_from_jax(qtree)
+    for key, leaf in _flat(qtree):
+        got, want = dict(_flat(port))[key], np.asarray(leaf)
+        if want.dtype == np.int8:
+            assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want), key
+        else:
+            assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want.astype(np.float32)), key
+    assert port["blocks"]["attn_q_w@scale"].dtype == torch.float32
+    assert port["tok_emb"].dtype == torch.int8
+
+
 def test_npz_load_matches_jax(tpu_model, tmp_path):
     path = str(tmp_path / "model.npz")
     whisper_tpu.save_model(tpu_model, path)

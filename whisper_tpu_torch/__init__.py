@@ -23,6 +23,7 @@ from .models.dims import MODEL_DIMS, ModelDimensions
 from .models.params import load_params_npz, params_from_torch_state_dict
 from .models.registry import ALIGNMENT_HEADS, available_models, download_checkpoint
 from .models.whisper import Whisper, resolve_device
+from .quant import check_weights_mode
 from .streaming import StreamingTranscriber
 from .transcribe import transcribe
 from .version import __version__
@@ -64,20 +65,23 @@ def load_model(
     device="cuda",
     dims: Optional[ModelDimensions] = None,
     seed: int = 0,
+    weights: str = "",
 ) -> Whisper:
     """Load a model by registry name (the cached official checkpoint under
     `download_root`, downloaded and SHA256-verified when missing, with its
     published alignment heads), from a local openai/whisper `.pt` checkpoint
     or a `.npz` written by `save_model` or the JAX package, or — with
     `name=None` and `dims` — build one with random weights drawn from
-    `seed` on the device."""
+    `seed` on the device. `weights="int8"` makes its decode loops run on
+    weight-only int8 (quant.py; the model keeps its own weights)."""
     device = resolve_device(device)
+    weights = check_weights_mode(weights)
+    alignment_heads = params = None
     if name is None:
         if dims is None:
             raise ValueError("random weights (name=None) need `dims`")
-        return Whisper(dims, None, compute_dtype=compute_dtype, device=device, seed=seed)
-    alignment_heads = None
-    if name in available_models():
+        name = "custom"
+    elif name in available_models():
         dims, params = _load_torch_checkpoint(download_checkpoint(name, download_root))
         alignment_heads = ALIGNMENT_HEADS[name]
     elif os.path.isfile(name):
@@ -89,7 +93,8 @@ def load_model(
             dims, params = _load_torch_checkpoint(name)
     else:
         raise RuntimeError(f"Model {name} not found; available models = {available_models()}")
-    model = Whisper(dims, params, name=name, compute_dtype=compute_dtype, device=device)
+    model = Whisper(dims, params, name=name, compute_dtype=compute_dtype, device=device, seed=seed)
+    model.decode_weights = weights
     if alignment_heads is not None:
         model.set_alignment_heads(alignment_heads)
     return model

@@ -49,6 +49,9 @@ def cli():
     parser.add_argument("--output_format", "-f", type=str, default="all", choices=["txt", "vtt", "srt", "tsv", "json", "all"], help="format of the output file")
     parser.add_argument("--verbose", type=str2bool, default=True, help="whether to print out progress and debug messages")
     parser.add_argument("--compute_dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"], help="the model's compute dtype")
+    parser.add_argument("--weights", type=str, default="bf16", choices=["bf16", "int8"], help="decode-loop weight storage: int8 decodes with weight-only quantized weights (not held token-equal to bf16)")
+    parser.add_argument("--draft_model", type=str, default=None, help="optional draft model for speculative greedy decoding (it must share the model's vocabulary and n_mels); the tokens are those of plain greedy")
+    parser.add_argument("--draft_k", type=int, default=4, help="tokens drafted per speculative round (with --draft_model)")
 
     parser.add_argument("--task", type=str, default="transcribe", choices=["transcribe", "translate"], help="transcribe (X->X) or translate (X->English)")
     parser.add_argument("--language", type=str, default=None, choices=sorted(LANGUAGES.keys()) + sorted([k.title() for k in TO_LANGUAGE_CODE.keys()]), help="language spoken in the audio; None performs language detection")
@@ -87,6 +90,9 @@ def cli():
     output_dir: str = args.pop("output_dir")
     output_format: str = args.pop("output_format")
     compute_dtype = getattr(torch, args.pop("compute_dtype"))
+    weights: str = args.pop("weights")
+    draft_name: str = args.pop("draft_model")
+    draft_k: int = args.pop("draft_k")
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -105,7 +111,15 @@ def cli():
 
     from . import load_model
 
-    model = load_model(model_name, download_root=model_dir, compute_dtype=compute_dtype, device=device)
+    model = load_model(
+        model_name, download_root=model_dir, compute_dtype=compute_dtype, device=device,
+        weights=weights,
+    )  # fmt: skip
+    if draft_name is not None:
+        draft = load_model(
+            draft_name, download_root=model_dir, compute_dtype=compute_dtype, device=device
+        )
+        model.set_draft_model(draft, k=draft_k)
 
     writer = get_writer(output_format, output_dir)
     word_options = ["highlight_words", "max_line_count", "max_line_width", "max_words_per_line"]

@@ -24,16 +24,25 @@
 // fixed butterfly over the ranks) and applies the timestamp-mass rule. The
 // other CTAs exit at the barrier: nobody reads their shared memory. The
 // begin penalty is read only at the first sampled position.
+//
+// Per-row lengths (wtt_greedy_argmax_rows): each CTA reads its row's length
+// from memory, alongside its first loads; it then loads the begin vector for
+// every row and adds it where the row is at sample_begin, and reads the
+// row's timestamp history up to its own length. The scalar launch is a
+// separate instantiation, unchanged.
 #include "update_common.cuh"
 
 namespace wtt {
 
-template <int W>
+// kRows: row r's length is n_rows[r] (the speculative engine's draft steps
+// and verify pass); otherwise every row is at n_tokens.
+template <int W, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ tokens,
-                     const float* __restrict__ suppress, const float* __restrict__ begin,
-                     int* __restrict__ out_tok, float* __restrict__ out_lp, int V, int T,
-                     int n_tokens, int sample_begin, int use_ts, int eot, int ts_begin) {
+                     const int* __restrict__ n_rows, const float* __restrict__ suppress,
+                     const float* __restrict__ begin, int* __restrict__ out_tok,
+                     float* __restrict__ out_lp, int V, int T, int n_tokens, int sample_begin,
+                     int use_ts, int eot, int ts_begin) {
   __shared__ TsFlags flags;
   __shared__ Scratch<1> scratch;
   __shared__ Sweep<1> parts[kMaxCluster];  // rank 0's: the chunks' partials
@@ -46,10 +55,12 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
 
   int lo, hi;
   chunk_bounds<W>(V, C, c, lo, hi);
-  RowSrc src{logits + (size_t)row * V, suppress, n_tokens == sample_begin ? begin : nullptr};
-  sweep_chunk<1, W>(src, tokens + (size_t)row * T, n_tokens, sample_begin, use_ts, eot,
-                    ts_begin, use_ts ? ts_begin : V, lo, hi, flags, scratch,
-                    cluster.map_shared_rank(&parts[c], 0));
+  const float* beg = kRows || n_tokens == sample_begin ? begin : nullptr;
+  RowSrc src{logits + (size_t)row * V, suppress, beg};
+  const int* n_row = kRows ? n_rows + row : nullptr;
+  sweep_chunk<1, W, kRows>(src, tokens + (size_t)row * T, n_tokens, sample_begin, use_ts, eot,
+                           ts_begin, use_ts ? ts_begin : V, lo, hi, flags, scratch,
+                           cluster.map_shared_rank(&parts[c], 0), n_row, T);
   cluster_arrive();
   cluster_wait();
 
@@ -65,16 +76,16 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
   }
 }
 
-template <int W>
-int launch_greedy(const float* logits, const int* tokens, const float* suppress,
-                  const float* begin, int* out_tok, float* out_lp, int B, int V, int T,
-                  int n_tokens, int sample_begin, int use_ts, int eot, int ts_begin,
-                  cudaStream_t stream) {
-  int C = fit_chunks<greedy_argmax_kernel<W>>(1);
+template <int W, bool kRows>
+int launch_greedy(const float* logits, const int* tokens, const int* n_rows,
+                  const float* suppress, const float* begin, int* out_tok, float* out_lp, int B,
+                  int V, int T, int n_tokens, int sample_begin, int use_ts, int eot,
+                  int ts_begin, cudaStream_t stream) {
+  int C = fit_chunks<greedy_argmax_kernel<W, kRows>>(1);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch_clusters(greedy_argmax_kernel<W>, B * C, C, stream, logits, tokens,
-                              suppress, begin, out_tok, out_lp, V, T, n_tokens, sample_begin,
-                              use_ts, eot, ts_begin);
+  return (int)launch_clusters(greedy_argmax_kernel<W, kRows>, B * C, C, stream, logits, tokens,
+                              n_rows, suppress, begin, out_tok, out_lp, V, T, n_tokens,
+                              sample_begin, use_ts, eot, ts_begin);
 }
 
 }  // namespace wtt
@@ -83,15 +94,26 @@ extern "C" int wtt_greedy_argmax(const float* logits, const int* tokens, const f
                                  const float* begin, int* out_tok, float* out_lp, int B, int V,
                                  int T, int n_tokens, int sample_begin, int use_ts, int eot,
                                  int ts_begin, cudaStream_t stream) {
-  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2>
-                                                             : wtt::launch_greedy<1>;
-  return launch(logits, tokens, suppress, begin, out_tok, out_lp, B, V, T, n_tokens,
+  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2, false>
+                                                             : wtt::launch_greedy<1, false>;
+  return launch(logits, tokens, nullptr, suppress, begin, out_tok, out_lp, B, V, T, n_tokens,
+                sample_begin, use_ts, eot, ts_begin, stream);
+}
+
+// Per-row lengths: row r of the (B, T) history is at length n_rows[r].
+extern "C" int wtt_greedy_argmax_rows(const float* logits, const int* tokens, const int* n_rows,
+                                      const float* suppress, const float* begin, int* out_tok,
+                                      float* out_lp, int B, int V, int T, int sample_begin,
+                                      int use_ts, int eot, int ts_begin, cudaStream_t stream) {
+  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2, true>
+                                                             : wtt::launch_greedy<1, true>;
+  return launch(logits, tokens, n_rows, suppress, begin, out_tok, out_lp, B, V, T, 0,
                 sample_begin, use_ts, eot, ts_begin, stream);
 }
 
 // Chunks per row (the cluster size) that the greedy kernel uses on the
 // current device, 0 if none fits.
 extern "C" int wtt_greedy_argmax_chunks(int V) {
-  return V % 2 ? wtt::fit_chunks<wtt::greedy_argmax_kernel<1>>(1)
-               : wtt::fit_chunks<wtt::greedy_argmax_kernel<2>>(1);
+  return V % 2 ? wtt::fit_chunks<wtt::greedy_argmax_kernel<1, false>>(1)
+               : wtt::fit_chunks<wtt::greedy_argmax_kernel<2, false>>(1);
 }

@@ -269,12 +269,20 @@ __device__ __forceinline__ void cluster_wait() {
 // read from its history (warp 0), so the two latencies overlap. Every thread
 // of the CTA must call; the call includes the wait on the cluster arrival
 // that the kernel made at its start.
-template <int K, int W>
+//
+// kRows: the row's length is read from `n_row` (n_tokens is ignored). Its
+// load is issued with the first units, which then load the begin vector
+// whatever the length (src.begin must be set); the begin penalty is added
+// where the row is at sample_begin. The history is read up to
+// min(length, T).
+template <int K, int W, bool kRows = false>
 __device__ void sweep_chunk(const RowSrc& src, const int* hist, int n_tokens, int sample_begin,
                             int use_ts, int eot, int ts_begin, int split, int lo, int hi,
-                            TsFlags& flags, Scratch<K>& scratch, Sweep<K>* dst) {
+                            TsFlags& flags, Scratch<K>& scratch, Sweep<K>* dst,
+                            const int* n_row = nullptr, int T = 0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_units = (hi - lo) / W;
+  if constexpr (kRows) n_tokens = __ldg(n_row);
   Unit<W> u[kUnroll];
 #pragma unroll
   for (int k = 0; k < kUnroll; ++k) {
@@ -283,11 +291,18 @@ __device__ void sweep_chunk(const RowSrc& src, const int* hist, int n_tokens, in
   }
   if (warp == 0) {
     TsFlags f = {0, 0, 0, 0};
-    if (use_ts) f = warp_ts_flags(hist, n_tokens, sample_begin, ts_begin);
+    if (use_ts) {
+      if constexpr (kRows) {
+        f = warp_ts_flags(hist, min(max(n_tokens, 0), T), sample_begin, ts_begin);
+      } else {
+        f = warp_ts_flags(hist, n_tokens, sample_begin, ts_begin);
+      }
+    }
     if (lane == 0) flags = f;
   }
   __syncthreads();
   const RowFilter rf{use_ts, eot, ts_begin, flags};
+  const bool add_begin = kRows ? n_tokens == sample_begin : src.begin != nullptr;
 
   TopK<K> txt, ts;
   txt.init();
@@ -304,7 +319,7 @@ __device__ void sweep_chunk(const RowSrc& src, const int* hist, int n_tokens, in
       for (int w = 0; w < W; ++w) {
         int id = lo + j * W + w;
         float x = u[k].l[w] + u[k].s[w];
-        if (src.begin) x += u[k].b[w];
+        if (add_begin) x += u[k].b[w];
         x = rf(x, id);
         if (id < split) {  // the region is per id: split may fall inside a chunk
           txt.push(x, id);

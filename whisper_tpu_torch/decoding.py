@@ -452,6 +452,7 @@ class DecodingTask:
         self.sot_index: int = self.initial_tokens.index(tokenizer.sot)
 
         self.inference = Inference(model, self.n_group)
+        self._draft_ckv = None  # the draft's cross-K/V when this run speculates
         self.sequence_ranker = MaximumLikelihoodRanker(options.length_penalty)
 
         if options.beam_size is not None:
@@ -579,15 +580,46 @@ class DecodingTask:
 
         return tokens, sum_logprobs, no_speech_probs
 
-    def _main_loop_fused(self, tokens: np.ndarray):
-        """Run the sampling loop in the engine and convert its outputs; beam
-        pools are poured into BeamSearchDecoder.finished_sequences so that
-        finalize() and ranking behave as on the host loop."""
-        from .engine import FusedEngine
+    def _can_speculate(self) -> bool:
+        """The speculative engine takes the greedy temperature-0 attempts of
+        a model with a draft (set_draft_model), when the verify pass's K + 1
+        slots fit after the longest decode; beam search and the t > 0
+        ladder run the plain engine."""
+        if getattr(self.model, "draft_model", None) is None:
+            return False
+        k = self.model.draft_k
+        return (
+            self.options.beam_size is None
+            and self.options.temperature == 0
+            and self.n_group == 1
+            and self.sample_begin + self.sample_len <= self.n_ctx - k - 1
+        )
 
-        if getattr(self.model, "_fused_engine", None) is None:
-            self.model._fused_engine = FusedEngine(self.model)
-        engine: FusedEngine = self.model._fused_engine
+    def _engines(self):
+        """The model's cached engine for its weights mode, and its cached
+        speculative engine for its draft when this run speculates."""
+        from .engine import model_engine
+        from .speculative import SpeculativeEngine
+
+        model = self.model
+        engine = model_engine(model, getattr(model, "decode_weights", ""))
+        weights = engine.weights
+        if self._draft_ckv is None:
+            return engine, None
+        key = (id(model.draft_model), model.draft_k, weights)
+        if model._spec_engine is None or model._spec_engine_key != key:
+            model._spec_engine = SpeculativeEngine(
+                model, model.draft_model, k=model.draft_k, weights=weights
+            )
+            model._spec_engine_key = key
+        return engine, model._spec_engine
+
+    def _main_loop_fused(self, tokens: np.ndarray):
+        """Run the sampling loop in the engine (or, with a draft, the
+        speculative engine) and convert its outputs; beam pools are poured
+        into BeamSearchDecoder.finished_sequences so that finalize() and
+        ranking behave as on the host loop."""
+        engine, spec = self._engines()
 
         tokenizer = self.tokenizer
         beam_search = self.options.beam_size is not None
@@ -603,12 +635,7 @@ class DecodingTask:
                 max_initial = f.max_initial_timestamp_index
 
         rows = tokens[:: self.n_group].astype(np.int32)
-        (
-            out_tokens, n_tokens, sum_logprobs, no_speech_prob, ftok, fscore, flen, fcount,
-        ) = engine.run(
-            rows,
-            self.inference.ck,
-            self.inference.cv,
+        common = dict(
             sot_index=self.sot_index,
             suppress_ids=suppress_ids,
             blank_ids=blank_ids,
@@ -623,10 +650,21 @@ class DecodingTask:
             timestamp_begin=tokenizer.timestamp_begin,
             no_timestamps=tokenizer.no_timestamps,
             no_speech=tokenizer.no_speech if tokenizer.no_speech is not None else 0,
-            rng_seed=(
-                np.random.randint(0, 2**31 - 1) if self.options.temperature > 0 else 0
-            ),
-        )  # fmt: skip
+        )
+        if spec is not None:
+            # the draft proposes, the target verifies: the tokens are the
+            # target's filtered argmax, as on the plain engine
+            out = spec.run(
+                rows, self.inference.ck, self.inference.cv, *self._draft_ckv, **common
+            )
+        else:
+            out = engine.run(
+                rows, self.inference.ck, self.inference.cv, **common,
+                rng_seed=(
+                    np.random.randint(0, 2**31 - 1) if self.options.temperature > 0 else 0
+                ),
+            )  # fmt: skip
+        out_tokens, n_tokens, sum_logprobs, no_speech_prob, ftok, fscore, flen, fcount = out
 
         n = int(n_tokens)
         tokens = out_tokens[:, :n].astype(np.int64)
@@ -669,6 +707,11 @@ class DecodingTask:
             ]
 
         self.inference.set_audio_features(audio_features, cross_kv)
+        # with a draft, its cross-K/V from the same mel: one more encode
+        self._draft_ckv = None
+        if cross_kv is not None and self._can_fuse() and self._can_speculate():
+            _, dck, dcv = self.model.draft_model.encode_with_cross_kv(mel)
+            self._draft_ckv = (dck, dcv)
         tokens = np.repeat(tokens, self.n_group, axis=0)
         tokens, sum_logprobs, no_speech_probs = self._main_loop(tokens)
 

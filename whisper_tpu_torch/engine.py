@@ -12,6 +12,12 @@ is done, after sample_len steps, or when the 448-slot context is full.
 
 The loop reads the `completed` flag on the host once per step (one device
 synchronization per token).
+
+`FusedEngine(model, weights="int8")` decodes with weight-only int8 (quant.py):
+the engine quantizes the model's decoder once, on first use, and keeps the
+quantized tree; each run quantizes the window's cross-K/V before the
+prefill. The model's own parameters are left as they are. `model_engine`
+gives a model's cached engine, one quantized tree per model and mode.
 """
 
 import collections
@@ -21,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import quant
 from .models import graphs
 from .ops.beam_kernel import apply_filters, beam_update, build_penalty_vectors, greedy_argmax
 
@@ -31,8 +38,10 @@ class FusedEngine:
     """Runs decode windows for one model; keeps the penalty vectors of the
     last suppression sets on the device."""
 
-    def __init__(self, model):
+    def __init__(self, model, weights: str = ""):
         self.model = model
+        self.weights = quant.check_weights_mode(weights)
+        self._dec_params = None
         self._pen_cache = {}
         # (beam_search, temperature, updates, seconds) of the latest runs:
         # callers read it to count the updates that went through each kernel
@@ -46,6 +55,14 @@ class FusedEngine:
             dev = self.model.device
             self._pen_cache = {key: (torch.from_numpy(sup).to(dev), torch.from_numpy(beg).to(dev))}
         return self._pen_cache[key]
+
+    def _decoder_params(self):
+        """The decoder tree the loop reads: the model's own, or in int8 mode
+        a quantized copy made on first use."""
+        if self._dec_params is None:
+            dec = self.model.params["decoder"]
+            self._dec_params = quant.quantize_decoder(dec) if self.weights == "int8" else dec
+        return self._dec_params
 
     @torch.inference_mode()
     def run(
@@ -77,7 +94,7 @@ class FusedEngine:
         t0 = time.perf_counter()
         model = self.model
         dev = model.device
-        dec = model.params["decoder"]
+        dec = self._decoder_params()
         n_ctx = graphs.CACHE_SLOTS
         G = n_group
 
@@ -105,6 +122,9 @@ class FusedEngine:
         toks = np.zeros((A, n_ctx), dtype=np.int32)
         toks[:, :n_initial] = initial_tokens
         first = torch.from_numpy(toks).to(dev)
+
+        if self.weights == "int8":
+            ck, cv = quant.quantize_cross_kv(ck, cv)
 
         # ---- prefill, once per audio ----
         hidden, kv = graphs.prefill(
@@ -180,3 +200,14 @@ class FusedEngine:
         )
         self.history.append((beam_search, float(temperature), step, time.perf_counter() - t0))
         return out
+
+
+def model_engine(model, weights: str = "") -> FusedEngine:
+    """The model's cached engine for `weights`, built (and cached on the
+    model in place of one of another mode) when it has none: each model
+    holds one quantized decoder tree and one set of penalty vectors."""
+    weights = quant.check_weights_mode(weights)
+    engine = getattr(model, "_fused_engine", None)
+    if engine is None or engine.weights != weights:
+        engine = model._fused_engine = FusedEngine(model, weights=weights)
+    return engine

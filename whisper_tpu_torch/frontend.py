@@ -6,7 +6,9 @@ The counterpart of whisper_tpu/frontend.py:
     (N, n_mels, F) tensor (one upload, one batched STFT), and each round's
     windows sliced from it at every stream's seek (batch.py);
   * `encode_clip` — a whole clip's 30 s windows through the mel, the
-    encoder and the cross-K/V, the windows on the audio axis.
+    encoder and the cross-K/V, the windows on the audio axis;
+  * `encode_clip_spec` — the same for a target and its draft, the
+    speculative engine's inputs.
 transcribe()'s whole-file mel and its windows are ops/stft.py's
 `device_mel_full` / `device_mel_window`.
 """
@@ -19,7 +21,9 @@ import torch
 from .audio import HOP_LENGTH, N_FRAMES, N_SAMPLES
 from .ops.stft import log_mel_spectrogram_torch, pack_audio
 
-__all__ = ["batched_device_mel", "batched_mel_windows", "encode_clip", "pack_audio"]
+__all__ = [
+    "batched_device_mel", "batched_mel_windows", "encode_clip", "encode_clip_spec", "pack_audio",
+]  # fmt: skip
 
 
 def batched_device_mel(audios: List[np.ndarray], n_mels: int, device) -> Tuple[torch.Tensor, List[int]]:
@@ -70,3 +74,12 @@ def encode_clip(model, audio: np.ndarray):
     windows = mel[:, : n_windows * N_FRAMES].reshape(n_mels, n_windows, N_FRAMES).transpose(0, 1)
     ck, cv = model.cross_kv(model.encode(windows))
     return ck, cv, n_windows
+
+
+def encode_clip_spec(model, draft, audio: np.ndarray):
+    """A host waveform -> (cK, cV, draft cK, draft cV, n_windows): each
+    model's cross-K/V of the clip's 30 s windows (encode_clip), from its own
+    mel, so the draft may have another n_mels than the target."""
+    ck, cv, n_windows = encode_clip(model, audio)
+    dck, dcv, _ = encode_clip(draft, audio)
+    return ck, cv, dck, dcv, n_windows

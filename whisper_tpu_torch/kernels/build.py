@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "wtt_greedy_argmax": [_P] * 6 + [_I] * 8 + [_P],
+    "wtt_greedy_argmax_rows": [_P] * 7 + [_I] * 7 + [_P],
     "wtt_beam_update": [_P] * 12 + [_I] * 11 + [_P],
     "wtt_greedy_argmax_chunks": [_I],
     "wtt_beam_update_chunks": [_I] * 2,

@@ -9,6 +9,7 @@ layouts, so that the tests compare like with like:
   prefill_with_alignment                       -> ... + align scores (n_heads_sel, P, 1500)
   alignment_outputs  the word-timing replay    -> text_probs (P,), cost matrix (P, 1500)
   decode_step token (B,) + KV cache (L, 2, B, 448, d) -> logits (B, V) f32, cache
+  decode_chunk K tokens (B, K) at per-row slots pos (B,) -> logits (B, K, V) f32, cache
 
 LayerNorm epsilons are 1e-7 in the audio encoder and 1e-5 in the text
 decoder; GELU is exact. Attention scores and the logits are float32
@@ -17,7 +18,14 @@ XLA's preferred_element_type=float32) and the softmax runs in float32. The
 forms that exist only for TPU layouts (one-hot slot writes, the row-map lazy
 beam reorder, bucketed cache phases, query chunking) are not copied:
 decode_step writes the new slot in place and reorders beams by an index
-gather over the occupied slots.
+gather over the occupied slots; decode_chunk attends over the cache up to
+the largest row position with a per-row key mask.
+
+A decoder tree from quant.quantize_decoder holds int8 weights with
+'<name>@scale' siblings, and the cross-K/V may be int8 (tensor, scale)
+pairs from quant.quantize_cross_kv: `_dot`, `tok_embedding`,
+`_cross_attention` and `hidden_to_logits` read both forms, the plain one
+exactly as before.
 """
 
 import torch
@@ -60,6 +68,37 @@ def matmul_f32(a, b):
     a3 = a.expand(*batch, m, k).reshape(-1, m, k)
     b3 = b.expand(*batch, k, n).reshape(-1, k, n)
     return torch.bmm(a3, b3, out_dtype=torch.float32).view(*batch, m, n)
+
+
+def _dot(x, blk, name):
+    """x @ blk[name]. An int8 weight (quant.py) has a '<name>@scale' sibling,
+    one float32 scale per output channel: the product of the bf16-rounded
+    operands is summed in float32, scaled, and cast to x's dtype (as the
+    JAX package's _dot rounds an f32 model's activations to bf16 too)."""
+    w = blk[name]
+    scale = blk.get(name + "@scale")
+    if scale is None:
+        return x @ w
+    y = matmul_f32(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    return (y * scale).to(x.dtype)
+
+
+def tok_embedding(dec, tokens, dtype):
+    """Token-embedding rows in `dtype`, dequantized per row if int8."""
+    tokens = tokens.long()
+    rows = dec["tok_emb"][tokens]
+    scale = dec.get("tok_emb@scale")
+    if scale is None:
+        return rows.to(dtype)
+    return (rows.float() * scale[tokens][..., None]).to(dtype)
+
+
+def ckv_layer(ckv, l):
+    """Layer `l` of a cross-K/V operand: a stacked tensor or an int8
+    (tensor, scale) pair."""
+    if isinstance(ckv, tuple):
+        return ckv[0][l], ckv[1][l]
+    return ckv[l]
 
 
 def _softmax_f32(scores, dtype):
@@ -123,29 +162,40 @@ def cross_kv(dec, xa, *, n_head):
 
 def _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=False):
     """x: (B, T, d); ck_l/cv_l: (Bc, H, dh, Tk) with B % Bc == 0 — each
-    audio's K/V serves the B // Bc query rows of its group. With
+    audio's K/V serves the B // Bc query rows of its group — or int8
+    (tensor, (Bc, H, Tk) scale) pairs: the K scale multiplies the scores,
+    the V scale the softmax weights before the AV product. With
     return_scores, also the float32 scores before the softmax, (Bc, H,
     g*T, Tk)."""
     B, T, d = x.shape
     dh = d // n_head
-    Bc = ck_l.shape[0]
+    ck_a, ck_s = ck_l if isinstance(ck_l, tuple) else (ck_l, None)
+    cv_a, cv_s = cv_l if isinstance(cv_l, tuple) else (cv_l, None)
+    Bc = ck_a.shape[0]
     g = B // Bc
     h = layer_norm(x, blk["cross_ln_g"], blk["cross_ln_b"], 1e-5)
-    q = (h @ blk["cross_q_w"] + blk["cross_q_b"]) * (dh**-0.5)
+    q = (_dot(h, blk, "cross_q_w") + blk["cross_q_b"]) * (dh**-0.5)
     # (Bc, H, g*T, dh): the group's query rows share one K/V
     qh = q.view(Bc, g * T, n_head, dh).transpose(1, 2)
-    scores = matmul_f32(qh, ck_l)  # (Bc, H, g*T, Tk)
-    w = _softmax_f32(scores, x.dtype)
-    out = w @ cv_l.transpose(-1, -2)  # (Bc, H, g*T, dh)
+    if ck_s is None:
+        scores = matmul_f32(qh, ck_a)  # (Bc, H, g*T, Tk)
+    else:
+        scores = matmul_f32(qh, ck_a.to(qh.dtype)) * ck_s[:, :, None, :]
+    if cv_s is None:
+        w = _softmax_f32(scores, x.dtype)
+        out = w @ cv_a.transpose(-1, -2)  # (Bc, H, g*T, dh)
+    else:
+        w = (torch.softmax(scores.float(), dim=-1) * cv_s[:, :, None, :]).to(x.dtype)
+        out = w @ cv_a.to(x.dtype).transpose(-1, -2)
     out = out.transpose(1, 2).reshape(B, T, d)
-    attn = out @ blk["cross_o_w"] + blk["cross_o_b"]
+    attn = _dot(out, blk, "cross_o_w") + blk["cross_o_b"]
     return (attn, scores) if return_scores else attn
 
 
 def _mlp(x, blk):
     h = layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"], 1e-5)
-    h = F.gelu(h @ blk["mlp_fc1_w"] + blk["mlp_fc1_b"])
-    return h @ blk["mlp_fc2_w"] + blk["mlp_fc2_b"]
+    h = F.gelu(_dot(h, blk, "mlp_fc1_w") + blk["mlp_fc1_b"])
+    return _dot(h, blk, "mlp_fc2_w") + blk["mlp_fc2_b"]
 
 
 def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
@@ -155,7 +205,7 @@ def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
     B, P = tokens.shape
     dev = tokens.device
 
-    x = dec["tok_emb"][tokens.long()] + dec["pos_emb"][:P]
+    x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"][:P]
     pos = torch.arange(P, device=dev)
     allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] < int(n_valid))
     mask = torch.zeros((P, P), device=dev).masked_fill(~allowed, float("-inf"))
@@ -169,16 +219,17 @@ def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
         h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
-        q = h @ blk["attn_q_w"] + blk["attn_q_b"]
-        k = h @ blk["attn_k_w"]
-        v = h @ blk["attn_v_w"] + blk["attn_v_b"]
-        x = x + _self_attention(q, k, v, mask, n_head) @ blk["attn_o_w"] + blk["attn_o_b"]
+        q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
+        k = _dot(h, blk, "attn_k_w")
+        v = _dot(h, blk, "attn_v_w") + blk["attn_v_b"]
+        x = x + _dot(_self_attention(q, k, v, mask, n_head), blk, "attn_o_w") + blk["attn_o_b"]
+        ck_l, cv_l = ckv_layer(ck, l), ckv_layer(cv, l)
         if l in wanted:
-            attn, scores = _cross_attention(x, blk, ck[l], cv[l], n_head, return_scores=True)
+            attn, scores = _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=True)
             for head, i in wanted[l]:
                 align[i] = scores[:, head]
         else:
-            attn = _cross_attention(x, blk, ck[l], cv[l], n_head)
+            attn = _cross_attention(x, blk, ck_l, cv_l, n_head)
         x = x + attn
         x = x + _mlp(x, blk)
         kv.append(torch.stack([k, v]))
@@ -254,10 +305,15 @@ def alignment_outputs(
 
 
 def hidden_to_logits(dec, hidden):
-    """hidden (..., d) -> logits (..., n_vocab) float32."""
+    """hidden (..., d) -> logits (..., n_vocab) float32; an int8 embedding
+    multiplies its bf16 product by the per-row scale."""
     emb = dec["tok_emb"]
+    scale = dec.get("tok_emb@scale")
+    if scale is not None:
+        emb = emb.to(torch.bfloat16)
     h = hidden.to(emb.dtype)
-    return matmul_f32(h.reshape(-1, h.shape[-1]), emb.T).view(*h.shape[:-1], emb.shape[0])
+    logits = matmul_f32(h.reshape(-1, h.shape[-1]), emb.T).view(*h.shape[:-1], emb.shape[0])
+    return logits if scale is None else logits * scale
 
 
 def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
@@ -280,20 +336,84 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
     B = tokens.shape[0]
     d = dec["tok_emb"].shape[1]
     dh = d // n_head
-    x = (dec["tok_emb"][tokens.long()] + dec["pos_emb"][pos])[:, None, :]  # (B, 1, d)
+    x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"][pos]
+    x = x[:, None, :]  # (B, 1, d)
 
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
         h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
-        q = h @ blk["attn_q_w"] + blk["attn_q_b"]
-        cache[l, 0, :, pos] = (h @ blk["attn_k_w"])[:, 0]
-        cache[l, 1, :, pos] = (h @ blk["attn_v_w"] + blk["attn_v_b"])[:, 0]
+        q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
+        cache[l, 0, :, pos] = _dot(h, blk, "attn_k_w")[:, 0]
+        cache[l, 1, :, pos] = (_dot(h, blk, "attn_v_w") + blk["attn_v_b"])[:, 0]
         keys = cache[l, 0, :, : pos + 1].view(B, pos + 1, n_head, dh).transpose(1, 2)
         vals = cache[l, 1, :, : pos + 1].view(B, pos + 1, n_head, dh).transpose(1, 2)
         qh = (q * (dh**-0.5)).view(B, 1, n_head, dh).transpose(1, 2)  # (B, H, 1, dh)
         w = _softmax_f32(matmul_f32(qh, keys.transpose(-1, -2)), x.dtype)  # (B, H, 1, pos+1)
-        x = x + _merge_heads(w @ vals) @ blk["attn_o_w"] + blk["attn_o_b"]
-        x = x + _cross_attention(x, blk, ck[l], cv[l], n_head)
+        x = x + _dot(_merge_heads(w @ vals), blk, "attn_o_w") + blk["attn_o_b"]
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
         x = x + _mlp(x, blk)
     x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
     return hidden_to_logits(dec, x[:, 0]), cache
+
+
+def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, width=None):
+    """K tokens per row at per-row cache slots, in one pass (the
+    speculative engine's draft step at K = 1 and its verify pass).
+
+    tokens_k: (B, K) int — row b's tokens at positions pos[b] .. pos[b]+K-1
+    pos:      (B,) int tensor — the first slot the chunk writes (the row's
+              tokens so far); rows may differ
+    cache:    (L, 2, B, C, d) self-attention K/V, valid below pos[b],
+              UPDATED IN PLACE: slots [pos[b], pos[b]+K) of the active rows
+              (pos[b] + K <= C for them)
+    ck/cv:    (L, Bc, H, dh, T) or int8 pairs, B % Bc == 0
+    active:   (B,) bool or None — rows with False write nothing; their
+              logits are computed and must be ignored
+    width:    a host int >= max(pos): the cache slots attended (None reads
+              max(pos) from the device)
+
+    Query i of row b sees the cached slots below pos[b] and the chunk's keys
+    j <= i. Returns (logits (B, K, n_vocab) f32, cache)."""
+    blocks = dec["blocks"]
+    dtype = blocks["attn_q_b"].dtype
+    B, K = tokens_k.shape
+    C, d = cache.shape[3], cache.shape[4]
+    dh = d // n_head
+    dev = tokens_k.device
+    pos = pos.long()
+    W = int(pos.max()) if width is None else int(width)
+    slots = (pos[:, None] + torch.arange(K, device=dev)).clamp_(0, C - 1)  # (B, K)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, K)
+    x = tok_embedding(dec, tokens_k, dtype) + dec["pos_emb"][slots]
+
+    inf = float("-inf")
+    kmask = torch.zeros((B, W), device=dev).masked_fill(
+        torch.arange(W, device=dev)[None, :] >= pos[:, None], inf
+    )[:, None, None, :]  # (B, 1, 1, W)
+    causal = torch.zeros((K, K), device=dev).masked_fill(
+        torch.ones((K, K), dtype=torch.bool, device=dev).triu(1), inf
+    )
+
+    for l in range(blocks["attn_q_w"].shape[0]):
+        blk = _layer(dec, l)
+        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]  # (B, K, d)
+        k = _dot(h, blk, "attn_k_w")
+        v = _dot(h, blk, "attn_v_w") + blk["attn_v_b"]
+        qh = _heads(q * (dh**-0.5), n_head)  # (B, H, K, dh)
+        kc, vc = _heads(cache[l, 0, :, :W], n_head), _heads(cache[l, 1, :, :W], n_head)
+        kn, vn = _heads(k, n_head), _heads(v, n_head)
+        s_cache = matmul_f32(qh, kc.transpose(-1, -2)) + kmask  # (B, H, K, W)
+        s_chunk = matmul_f32(qh, kn.transpose(-1, -2)) + causal  # (B, H, K, K)
+        w = _softmax_f32(torch.cat([s_cache, s_chunk], dim=-1), dtype)
+        wv = w[..., :W] @ vc + w[..., W:] @ vn
+        x = x + _dot(_merge_heads(wv), blk, "attn_o_w") + blk["attn_o_b"]
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
+        x = x + _mlp(x, blk)
+
+        new = torch.stack([k, v]).to(cache.dtype)  # (2, B, K, d)
+        if active is not None:
+            new = torch.where(active[None, :, None, None], new, cache[l][:, rows, slots])
+        cache[l][:, rows, slots] = new
+    x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
+    return hidden_to_logits(dec, x), cache

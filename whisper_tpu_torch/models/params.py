@@ -129,6 +129,11 @@ def cast_params(params: Dict, dtype, device) -> Dict:
 
     def cast(path, leaf):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        if t.dtype == torch.int8 or path.endswith("@scale"):
+            raise ValueError(
+                f"{path} is quantized: a model holds plain weights (the engines "
+                "quantize their own copy, FusedEngine(model, weights='int8'))"
+            )
         keep_f32 = any(path.endswith(k) for k in _LN_KEYS)
         return t.to(device=device, dtype=torch.float32 if keep_f32 else dtype)
 
@@ -137,10 +142,15 @@ def cast_params(params: Dict, dtype, device) -> Dict:
 
 def params_from_jax(tree: Dict) -> Dict:
     """The JAX package's parameter tree (numpy or jax arrays, any float
-    dtype) as float32 CPU tensors in the same layout."""
-    return _map_tree(
-        tree, lambda _, v: torch.from_numpy(np.asarray(v).astype(np.float32))
-    )
+    dtype) as float32 CPU tensors in the same layout. A quantized tree
+    (its quantize_decoder) keeps its int8 leaves int8 and its float32
+    '@scale' leaves as they are."""
+
+    def leaf(_, v):
+        a = np.asarray(v)
+        return torch.from_numpy(a.astype(np.int8 if a.dtype == np.int8 else np.float32))
+
+    return _map_tree(tree, leaf)
 
 
 def params_from_torch_state_dict(state_dict, dims: ModelDimensions) -> Dict:

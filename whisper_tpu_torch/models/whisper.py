@@ -56,6 +56,12 @@ class Whisper(nn.Module):
         # decode() runs the engine; False sends it to the host loop
         # (decoding.DecodingTask._main_loop_host)
         self.use_fused_decode = True
+        # the engines' weights mode: "" (the model's own dtype) or "int8"
+        # (quant.py); load_model(..., weights=) sets it
+        self.decode_weights = ""
+        # speculative greedy decoding (set_draft_model)
+        self.draft_k = 4
+        self.set_draft_model(None)
 
     # ---- graph entry points -------------------------------------------------
 
@@ -154,6 +160,35 @@ class Whisper(nn.Module):
         array = np.frombuffer(gzip.decompress(base64.b85decode(dump)), dtype=bool)
         mask = array.reshape(self.dims.n_text_layer, self.dims.n_text_head)
         self.alignment_heads = [(int(l), int(h)) for l, h in np.argwhere(mask)]
+
+    def set_draft_model(self, draft: Optional["Whisper"], k: int = 4):
+        """Attach a draft model for speculative greedy decoding, or clear it
+        with None.
+
+        With a draft, decode() / transcribe() / transcribe_batch / the
+        batcher run their greedy temperature-0 attempts on the speculative
+        engine (speculative.py): the draft proposes `k` tokens a round and
+        this model checks them in one decoder pass; the tokens are those of
+        plain greedy. The t > 0 ladder and beam search run the plain engine.
+        Both models read one mel, so the draft must share n_mels as well as
+        the vocabulary (frontend.encode_clip_spec and SpeculativeEngine
+        serve drafts of another n_mels directly)."""
+        if draft is not None and draft.dims.n_vocab != self.dims.n_vocab:
+            raise ValueError(
+                "draft must share the tokenizer/vocab "
+                f"({draft.dims.n_vocab} vs {self.dims.n_vocab})"
+            )
+        if draft is not None and draft.dims.n_mels != self.dims.n_mels:
+            raise ValueError(
+                "transcribe()-level speculation feeds both models one mel; "
+                f"draft n_mels {draft.dims.n_mels} != {self.dims.n_mels} "
+                "(use SpeculativeEngine + encode_clip_spec directly)"
+            )
+        # a plain attribute: the draft is not a submodule of this model
+        object.__setattr__(self, "draft_model", draft)
+        self._spec_engine = None  # the decoding task builds it for this draft
+        if draft is not None:
+            self.draft_k = int(k)
 
     # ---- high-level API ------------------------------------------------------
 

@@ -50,18 +50,27 @@ def apply_filters(
     use_timestamps, eot, timestamp_begin,
 ):  # fmt: skip
     """SuppressBlank / SuppressTokens / ApplyTimestampRules on (R, V) f32
-    logits with the (R, T) token history; all rows at length n_tokens."""
-    V = logits.shape[1]
+    logits with the (R, T) token history. n_tokens is every row's length
+    (an int) or a (R,) integer tensor of per-row lengths, as the JAX
+    package's _apply_filters takes it: the begin penalty applies to the rows
+    at sample_begin, and each row's timestamp rules read its own history."""
+    R, V = logits.shape
+    T = tokens.shape[1]
+    dev = logits.device
+    if isinstance(n_tokens, torch.Tensor):
+        nt = n_tokens.to(device=dev, dtype=torch.long)
+    else:
+        nt = torch.full((R,), int(n_tokens), dtype=torch.long, device=dev)
+    at_begin = nt == sample_begin
     l = logits + suppress_pen
-    if n_tokens == sample_begin:
-        l = l + begin_pen
+    l = l + torch.where(at_begin[:, None], begin_pen, 0.0)
     if not use_timestamps:
         return l
     ts = timestamp_begin
-    ids = torch.arange(V, device=logits.device)
-    seq_len = n_tokens - sample_begin
-    last = tokens[:, max(n_tokens - 1, 0)]
-    penult = tokens[:, max(n_tokens - 2, 0)]
+    ids = torch.arange(V, device=dev)
+    seq_len = nt - sample_begin
+    last = tokens.gather(1, (nt - 1).clamp(0, T - 1)[:, None])[:, 0]
+    penult = tokens.gather(1, (nt - 2).clamp(0, T - 1)[:, None])[:, 0]
     last_was_ts = (last >= ts) & (seq_len >= 1)
     penult_was_ts = (penult >= ts) | (seq_len < 2)
     force_non_ts = last_was_ts & penult_was_ts
@@ -69,16 +78,16 @@ def apply_filters(
     l = l.masked_fill(force_non_ts[:, None] & (ids >= ts)[None, :], NEG_INF)
     l = l.masked_fill(force_ts_or_eot[:, None] & (ids < eot)[None, :], NEG_INF)
 
-    hist = tokens[:, sample_begin:n_tokens]
-    if hist.shape[1]:
-        # timestamps never decrease: the largest sampled one is the latest
-        last_ts = torch.where(hist >= ts, hist, -1).amax(dim=1)
-        has_ts = last_ts >= 0
-        ts_floor = torch.where(force_ts_or_eot, last_ts, last_ts + 1)
-        l = l.masked_fill(
-            has_ts[:, None] & (ids >= ts)[None, :] & (ids[None, :] < ts_floor[:, None]),
-            NEG_INF,
-        )
+    # timestamps never decrease: the largest sampled one is the latest
+    col = torch.arange(T, device=dev)[None, :]
+    sampled = (col >= sample_begin) & (col < nt[:, None])
+    last_ts = torch.where(sampled & (tokens >= ts), tokens, -1).amax(dim=1)
+    has_ts = last_ts >= 0
+    ts_floor = torch.where(force_ts_or_eot, last_ts, last_ts + 1)
+    l = l.masked_fill(
+        has_ts[:, None] & (ids >= ts)[None, :] & (ids[None, :] < ts_floor[:, None]),
+        NEG_INF,
+    )
 
     # the timestamp mass beats every text token -> timestamps only (a
     # shift-invariant comparison, so raw filtered logits serve)
@@ -189,8 +198,12 @@ def greedy_argmax(
 ):  # fmt: skip
     """Filtered greedy argmax (lowest id on ties) and its log-probability.
 
-    logits (B, V) f32, tokens (B, T) i32 history with every row at length
-    n_tokens, penalty vectors (V,) f32. Returns (tok (B,) i32, lp (B,) f32).
+    logits (B, V) f32, tokens (B, T) i32 history, penalty vectors (V,) f32.
+    n_tokens is every row's length (an int), or a (B,) int32 tensor on the
+    logits' device with each row's own length: the kernel then reads row
+    r's length from memory (the speculative engine's draft steps and its
+    verify pass). Returns (tok (B,) i32, lp (B,) f32). Scalar launches count
+    in `greedy_argmax.launches`, per-row ones in `greedy_argmax.row_launches`.
     """
     kw = dict(use_timestamps=use_timestamps, eot=eot, timestamp_begin=timestamp_begin)
     if logits.device.type == "cpu":
@@ -206,22 +219,37 @@ def greedy_argmax(
     _check("tokens", tokens, torch.int32, (B, T), dev)
     _check("suppress_pen", suppress_pen, torch.float32, (V,), dev)
     _check("begin_pen", begin_pen, torch.float32, (V,), dev)
-    if not 0 < sample_begin <= n_tokens <= T:
+    per_row = isinstance(n_tokens, torch.Tensor)
+    if per_row:
+        _check("n_tokens", n_tokens, torch.int32, (B,), dev)
+        if not 0 < sample_begin <= T:
+            raise ValueError(f"bad sample_begin {sample_begin} for T = {T}")
+    elif not 0 < sample_begin <= n_tokens <= T:
         raise ValueError(f"bad lengths: sample_begin={sample_begin}, n_tokens={n_tokens}")
     lib = build.load_library()
     tok = torch.empty(B, dtype=torch.int32, device=dev)
     lp = torch.empty(B, dtype=torch.float32, device=dev)
-    rc = lib.wtt_greedy_argmax(
-        logits.data_ptr(), tokens.data_ptr(), suppress_pen.data_ptr(), begin_pen.data_ptr(),
-        tok.data_ptr(), lp.data_ptr(), B, V, T, n_tokens, sample_begin,
-        int(use_timestamps), eot, timestamp_begin, torch.cuda.current_stream(dev).cuda_stream,
-    )  # fmt: skip
-    greedy_argmax.launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if per_row:
+        rc = lib.wtt_greedy_argmax_rows(
+            logits.data_ptr(), tokens.data_ptr(), n_tokens.data_ptr(), suppress_pen.data_ptr(),
+            begin_pen.data_ptr(), tok.data_ptr(), lp.data_ptr(), B, V, T, sample_begin,
+            int(use_timestamps), eot, timestamp_begin, stream,
+        )  # fmt: skip
+        greedy_argmax.row_launches += 1
+    else:
+        rc = lib.wtt_greedy_argmax(
+            logits.data_ptr(), tokens.data_ptr(), suppress_pen.data_ptr(), begin_pen.data_ptr(),
+            tok.data_ptr(), lp.data_ptr(), B, V, T, n_tokens, sample_begin,
+            int(use_timestamps), eot, timestamp_begin, stream,
+        )  # fmt: skip
+        greedy_argmax.launches += 1
     _launch_check(rc, "greedy_argmax")
     return tok, lp
 
 
 greedy_argmax.launches = 0
+greedy_argmax.row_launches = 0
 
 
 def beam_update(
@@ -293,6 +321,7 @@ beam_update.launches = 0
 
 def reset_launch_counts():
     greedy_argmax.launches = 0
+    greedy_argmax.row_launches = 0
     beam_update.launches = 0
 
 

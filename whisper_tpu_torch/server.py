@@ -495,6 +495,7 @@ def serve_main(argv, description: str, add_transport_args, make_server):
     parser.add_argument("--model", default="turbo", help="a registry name, or a local .pt / .npz checkpoint")
     parser.add_argument("--device", default="cuda", help="cuda (a card is required) or cpu")
     parser.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    parser.add_argument("--weights", default="bf16", choices=["bf16", "int8"], help="decode-loop weight storage (int8: weight-only quantized)")
     parser.add_argument("--slots", type=int, default=4)
     parser.add_argument("--language", default=None)
     parser.add_argument("--beam_size", type=int, default=None)
@@ -502,7 +503,10 @@ def serve_main(argv, description: str, add_transport_args, make_server):
     parser.add_argument("--word_timestamps", action="store_true", help="segments carry per-word times")
     args = parser.parse_args(argv)
 
-    model = load_model(args.model, compute_dtype=getattr(torch, args.compute_dtype), device=args.device)
+    model = load_model(
+        args.model, compute_dtype=getattr(torch, args.compute_dtype), device=args.device,
+        weights=args.weights,
+    )  # fmt: skip
     kw = dict(language=args.language, word_timestamps=args.word_timestamps)
     if args.beam_size is not None:
         kw["beam_size"] = args.beam_size
