@@ -128,6 +128,25 @@ Phases (any failure raises and the script exits non-zero):
      equal to the plain ones. The main path also runs the clip at T = 0
      plainly and with the bf16 draft installed, whose launches its check
      counts;
+  train. fine-tuning, checkpoints and distillation: graphs.matmul_f32's
+     autograd Function on bf16 operands at turbo width (logits head,
+     encoder and cross-attention scores, a broadcast K): forward equal to
+     the product without autograd, gradients within one bf16 ulp of the
+     widened form's; at tiny dims in float32, one model on the card and on
+     the CPU: one loss_fn's gradients (rtol 1e-4, atol 1e-6), 4-step
+     run_finetune and run_distill loss histories (rtol 1e-4), and the
+     card's distilled draft attached with speculative tokens equal to plain
+     greedy's; run_finetune of the turbo model, 4 steps at batch 2 (losses
+     finite and falling, ms a step, peak memory, the checkpoint's bytes,
+     save and load seconds), load_model of its directory decoding one
+     window at T = 0 (a greedy launch a step); a turbo step's forward and
+     backward with the stacked weights split by unbind and by select, in
+     turns; run_distill of the turbo target into a tiny-sized student at
+     batch 4, two of its four records pseudo-labeled by the target on the
+     card, then the student as the target's draft in transcribe() of jfk at
+     T = 0 (tokens against plain greedy reported in bf16, acceptance,
+     tokens a round); the greedy launches of these decodes count on the
+     main path;
   6. profile one greedy window and one beam-5 window of decode() at turbo
      width, each with bf16 weights and then with int8 weights (launches,
      the common prefix of their tokens, and where they part, each mode's
@@ -135,7 +154,8 @@ Phases (any failure raises and the script exits non-zero):
      run: wall time,
      device-busy time, kernels, the update kernel's
      device time and the host's blocked read of the `completed` flag, per
-     step of the engine's loop;
+     step of the engine's loop; then one turbo train step at batch 2 (wall,
+     device-busy ms, idle share, kernels, the five longest by name);
   7. print the kernels line, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, where CUDA is not available.
@@ -169,7 +189,7 @@ from whisper_tpu_torch.engine import FusedEngine  # noqa: E402
 from whisper_tpu_torch.kernels import build  # noqa: E402
 from whisper_tpu_torch.models.dims import MODEL_DIMS, ModelDimensions  # noqa: E402
 from whisper_tpu_torch.models import graphs  # noqa: E402
-from whisper_tpu_torch.models.params import init_random_params  # noqa: E402
+from whisper_tpu_torch.models.params import flatten_tree, init_random_params  # noqa: E402
 from whisper_tpu_torch.models.whisper import Whisper  # noqa: E402
 from whisper_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from whisper_tpu_torch.ops import dtw, median  # noqa: E402
@@ -633,6 +653,7 @@ def check_greedy_rows():
                 plain_ms=device_ms(lambda: bk.greedy_argmax_plain(*args, **kw))[0],
                 plain_call_ms=call_ms(lambda: bk.greedy_argmax_plain(*args, **kw)),
                 empty_ms=empty_ms(C, C),
+                library_ms=device_ms(lambda: torch.topk(args[0], 1, dim=-1))[0],
             )  # fmt: skip
     args, kw = rows_case(402, 2, 0, True, "randn", C, at_begin=False)
     scalar = (args[0], args[1], 60, *args[3:])
@@ -673,14 +694,15 @@ def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes, cluster, top
     """Device ms (profiler) and ms per call (CUDA events) of the kernel,
     which launches clusters of `cluster` CTAs, with the empty kernel's
     device ms at the same launch shape and at one CTA, `topk_fn`
-    (torch.topk on the same rows) and the plain version."""
+    (torch.topk on the same rows, the library call beside the update,
+    which it computes without the filters) and the plain version."""
     plain_ms, plain_kernels = device_ms(plain_fn)
     topk_ms, topk_kernels = device_ms(topk_fn)
     return dict(
         max_abs_err=err, ms=kernel_ms(kernel_fn, wrapper, kernel_name),
         call_ms=call_ms(kernel_fn), cluster=cluster, plain_ms=plain_ms,
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, plain_call_ms=call_ms(plain_fn),
-        plain_kernels_per_call=plain_kernels, bytes=nbytes, topk_ms=topk_ms,
+        plain_kernels_per_call=plain_kernels, bytes=nbytes, library_ms=topk_ms,
         topk_kernels_per_call=topk_kernels, empty_ms=empty_ms(cluster, cluster),
         empty_1cta_ms=empty_ms(1, 1),
     )  # fmt: skip
@@ -1366,7 +1388,7 @@ def main_path(model, audio, draft=None, **kw):
     the plain engine's temperature-0 updates, plus step 0 of each
     speculative run; the per-row greedy launches equal the speculative
     runs' draft steps and verify rounds; the word-timing kernels launch
-    once per aligned window."""
+    once per aligned window. Returns (stats, launches, the result)."""
     if model._fused_engine is not None:
         model._fused_engine.history.clear()
     model.set_draft_model(draft)
@@ -1414,9 +1436,14 @@ def main_path(model, audio, draft=None, **kw):
         temperatures=sorted({r[1] for r in runs}),
     )
     if spec:
+        rounds = sum(r[2] for r in spec)
+        # each round emits its accepted drafts and one token of the target's
+        accepted = sum(max(r[3] - 1 - r[2], 0) for r in spec)
         stats.update(
             spec_windows=len(spec), draft_steps=sum(r[1] for r in spec),
-            verify_rounds=sum(r[2] for r in spec), tokens_decoded=sum(r[3] for r in spec),
+            verify_rounds=rounds, tokens_decoded=sum(r[3] for r in spec),
+            acceptance=accepted / max(rounds * model.draft_k, 1),
+            tokens_per_round=sum(r[3] for r in spec) / max(rounds, 1),
         )  # fmt: skip
     if kw.get("word_timestamps"):
         if aligned == 0:
@@ -1425,7 +1452,7 @@ def main_path(model, audio, draft=None, **kw):
             windows_aligned=aligned, words=check_words(segs, len(audio) / 16000),
             replay_s=replay_s, replay_share=replay_s / wall,
         )  # fmt: skip
-    return stats, launches
+    return stats, launches, result
 
 
 def replay_cross_kv(model):
@@ -2718,6 +2745,381 @@ def decode_loop_profile(model, audio, beam_size=None):
     )
 
 
+# ---- train: fine-tuning, checkpoints and draft distillation ----------------
+
+TRAIN_DIR = os.path.join(ROOT, "smoke", "_build", "train")
+JFK_PATH = os.path.join(ROOT, "tests", "data", "jfk.flac")
+TRAIN_TEXTS = [
+    "and so my fellow americans ask not what your country can do for you",
+    "ask not what you can do for your country",
+]
+# the 1-layer, 64-wide student of the tiny card-vs-CPU distillation
+TINY_STUDENT = ModelDimensions(80, 1500, 64, 1, 1, 51866, 448, 64, 1, 1)
+
+
+def train_records():
+    return [{"audio": JFK_PATH, "text": t} for t in TRAIN_TEXTS]
+
+
+def train_dir(name):
+    path = os.path.join(TRAIN_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+class StepClock:
+    """The log function of run_finetune / run_distill: keeps each line and
+    the host clock at which it came. A step's line follows the host read of
+    its loss, so the gaps between step lines are the steps' wall times."""
+
+    def __init__(self):
+        self.lines, self.times = [], []
+
+    def __call__(self, line):
+        self.lines.append(line)
+        self.times.append(time.perf_counter())
+
+    def steps(self):
+        return [(ln, t) for ln, t in zip(self.lines, self.times) if "  loss " in ln]
+
+    def step_ms(self):
+        t = [t for _, t in self.steps()]
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    def field(self, name):
+        """The values of `name` in the step lines ("ce", "kl")."""
+        return [float(ln.split(f"  {name} ")[1].split()[0]) for ln, _ in self.steps()]
+
+
+def falling(history, what):
+    if not (np.isfinite(history).all() and history[-1] < history[0]):
+        raise AssertionError(f"{what}: losses {history} not finite and falling")
+
+
+def finetune_phase(model, jfk):
+    """run_finetune of the turbo model: 4 steps at batch 2, max_tokens 128,
+    lr 1e-3, on two jfk records with different texts. The losses finite and
+    falling; wall ms a step after the first, peak memory, the checkpoint's
+    bytes, save seconds (from the last step's line to the return, the
+    device-to-host copy included), load seconds; then load_model of the
+    directory decodes the clip's first window at T = 0 on the card, the
+    greedy kernel launched once a step. Returns (stats, launches of that
+    decode)."""
+    from whisper_tpu_torch import load_model
+    from whisper_tpu_torch.checkpoint import load_checkpoint
+    from whisper_tpu_torch.finetune import run_finetune
+
+    out_dir, clock = train_dir("finetune"), StepClock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = run_finetune(
+        model, train_records(), steps=4, batch_size=2, out_dir=out_dir, learning_rate=1e-3,
+        max_tokens=128, log=clock,
+    )  # fmt: skip
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    falling(history, "turbo fine-tune")
+    ckpt = os.path.join(out_dir, "state_4.pt")
+    t = time.perf_counter()
+    load_checkpoint(out_dir)
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tuned = load_model(out_dir, device=DEV, compute_dtype=model.compute_dtype)
+    torch.cuda.synchronize()
+    load_model_s = time.perf_counter() - t
+    window = first_window(tuned, jfk)
+    reset_launch_counts()
+    result = decode(tuned, window, DecodingOptions(language="en", temperature=0.0))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = tuned._fused_engine.history[-1][2]
+    if counts["greedy_argmax"] != steps or not steps:
+        raise AssertionError(f"the tuned model's decode: launches {counts}, {steps} steps")
+    if not result.tokens or not np.isfinite(result.avg_logprob):
+        raise AssertionError("the tuned model decoded no token")
+    del tuned
+    torch.cuda.empty_cache()
+    return dict(
+        losses=history, first_step_s=clock.times[0] - t0, step_ms=clock.step_ms(),
+        max_memory_allocated=peak, checkpoint_bytes=os.path.getsize(ckpt),
+        save_s=end - clock.times[-1], load_checkpoint_s=load_s, load_model_s=load_model_s,
+        decoded_tokens=len(result.tokens),
+    ), counts  # fmt: skip
+
+
+def backward_ms(model, reps=2):
+    """One turbo train step's forward and backward at batch 2, the stacked
+    weights split per layer by one unbind (graphs._layers, kept) and by
+    indexing each layer (select, whose backward writes a zero tensor of
+    the whole stack per layer), in turns unbind, select, select, unbind:
+    host ms (synchronized) of the forward and of the backward."""
+    from whisper_tpu_torch.finetune import batches, model_tokenizer
+    from whisper_tpu_torch.parallel.train import device_batch, init_train_state, loss_fn
+
+    tok = model_tokenizer(model, "en")
+    batch = next(batches(train_records(), tok, n_mels=model.dims.n_mels, batch_size=2, max_tokens=128))
+    batch = device_batch(batch, DEV)
+    params = init_train_state(model.params, 1e-3, 0.01).params
+    unbind = graphs._layers
+
+    def select(tree):
+        return [graphs._layer(tree, l) for l in range(tree["blocks"]["attn_q_w"].shape[0])]
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params, batch, n_audio_head=model.dims.n_audio_head,
+                       n_text_head=model.dims.n_text_head)  # fmt: skip
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _, v in flatten_tree(params):
+            v.grad = None
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    out = {"unbind": [], "select": []}
+    try:
+        step()  # warm-up
+        for _ in range(reps):
+            for name, fn in (("unbind", unbind), ("select", select), ("select", select), ("unbind", unbind)):
+                graphs._layers = fn
+                out[name].append(step())
+    finally:
+        graphs._layers = unbind
+    del params
+    torch.cuda.empty_cache()
+    return {
+        f"{name}_{part}_ms": [r[i] for r in runs]
+        for name, runs in out.items() for i, part in enumerate(("forward", "backward"))
+    }  # fmt: skip
+
+
+def distill_phase(model, jfk):
+    """run_distill of the turbo target into a student of tiny's size with
+    turbo's vocabulary and mels: 4 records (jfk with two texts, jfk and jfk
+    reversed without text, which pseudo_label transcribes with the target
+    at T = 0 on the card, the greedy kernel launched), batch 4, 4 steps at
+    lr 1e-3. The losses finite and falling; ce and kl, ms a step,
+    pseudo-labeling seconds a record, peak memory. Then the student,
+    loaded from its directory, is the target's draft: transcribe() of jfk
+    at T = 0 plainly and speculatively (tokens equal or not, reported in
+    bf16; acceptance, tokens a round). Returns (stats, launches of the
+    pseudo-labeling and of the two transcribe() runs)."""
+    from whisper_tpu_torch import distill as distill_module
+    from whisper_tpu_torch import load_model
+    from whisper_tpu_torch.checkpoint import load_checkpoint
+
+    records = train_records() + [{"audio": JFK_PATH}, {"audio": np.ascontiguousarray(jfk[::-1])}]
+    out_dir, clock, labeled = train_dir("distill"), StepClock(), {}
+    pseudo_label = distill_module.pseudo_label
+
+    def timed_label(*args, **kw):
+        out, labeled["s"] = timed(lambda: pseudo_label(*args, **kw))
+        return out
+
+    distill_module.pseudo_label = timed_label
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        history = distill_module.run_distill(
+            model, "tiny", records, steps=4, batch_size=4, out_dir=out_dir, learning_rate=1e-3,
+            max_tokens=128, log=clock,
+        )  # fmt: skip
+    finally:
+        distill_module.pseudo_label = pseudo_label
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    falling(history, "turbo -> tiny distillation")
+    if not counts["greedy_argmax"]:
+        raise AssertionError(f"pseudo-labeling launched no greedy kernel: {counts}")
+    draft = load_model(out_dir, device=DEV, compute_dtype=model.compute_dtype)
+    plain, plain_counts, plain_result = main_path(model, jfk, temperature=0.0)
+    spec, spec_counts, spec_result = main_path(model, jfk, draft=draft, temperature=0.0)
+    for k in counts:
+        counts[k] += plain_counts[k] + spec_counts[k]
+    tokens = [[t for s in r["segments"] for t in s["tokens"]] for r in (plain_result, spec_result)]
+    del draft
+    torch.cuda.empty_cache()
+    return dict(
+        losses=history, ce=clock.field("ce"), kl=clock.field("kl"), step_ms=clock.step_ms(),
+        first_step_s=clock.steps()[0][1] - t0 - labeled["s"], pseudo_label_s=labeled["s"],
+        pseudo_label_s_per_record=labeled["s"] / 2, max_memory_allocated=peak,
+        draft_dims=load_checkpoint(out_dir)[1].__dict__,
+        spec_tokens_equal_bf16=tokens[0] == tokens[1],
+        spec_common_prefix=common_prefix(tokens[0], tokens[1]),
+        acceptance=spec["acceptance"], tokens_per_round=spec["tokens_per_round"],
+        plain_ms_per_token=plain["ms_per_token"], spec_ms_per_token=spec["ms_per_token"],
+        draft_steps=spec["draft_steps"], verify_rounds=spec["verify_rounds"],
+    ), counts  # fmt: skip
+
+
+def matmul_grads(dims):
+    """graphs.matmul_f32 on bf16 operands needing gradients (the autograd
+    Function) at the training path's shapes at `dims`' width: the logits
+    head (B·T, d) x (d, V), encoder self-attention scores, cross-attention
+    scores, and cross-attention scores whose K is shared over the batch
+    (broadcast): the forward equal bit for bit to the product without
+    autograd, each gradient within one bf16 ulp of the widened form's."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    d, H, V_ = dims.n_text_state, dims.n_text_head, dims.n_vocab
+    shapes = {
+        "logits": ((254, d), (d, V_)),
+        "encoder_scores": ((2, H, 1500, 64), (2, H, 64, 1500)),
+        "cross_scores": ((2, H, 127, 64), (2, H, 64, 1500)),
+        "broadcast_scores": ((2, H, 127, 64), (1, H, 64, 1500)),
+    }
+    out = {}
+    for name, (sa, sb) in shapes.items():
+        a = (torch.randn(sa, generator=gen, device=DEV) * 0.5).bfloat16().requires_grad_(True)
+        b = (torch.randn(sb, generator=gen, device=DEV) * 0.5).bfloat16().requires_grad_(True)
+        y = graphs.matmul_f32(a, b)
+        if y.grad_fn is None or type(y.grad_fn).__name__ != "_MatmulF32Backward":
+            raise AssertionError(f"{name}: matmul_f32 did not go through the Function ({y.grad_fn})")
+        with torch.no_grad():
+            same = torch.equal(y, graphs.matmul_f32(a, b))
+        g = torch.randn(y.shape, generator=gen, device=DEV)
+        got = torch.autograd.grad(y, (a, b), g)
+        want = torch.autograd.grad(a.float() @ b.float(), (a, b), g)
+        ulps = []
+        for x, w in zip(got, want):
+            ulp = torch.finfo(torch.bfloat16).eps * w.float().abs().clamp(min=2**-126)
+            ulps.append(((x.float() - w.float()).abs() / ulp).max().item())
+        if not same or max(ulps) > 1 or any(x.dtype != torch.bfloat16 for x in got):
+            raise AssertionError(f"{name}: forward equal {same}, gradients {ulps} bf16 ulps")
+        out[name] = dict(forward_equal=same, grad_ulps=ulps)
+    return out
+
+
+def train_card_vs_cpu():
+    """At tiny dims in float32 (TF32 off), one model on the card and on the
+    CPU: the gradients of one loss_fn call (rtol 1e-4, atol 1e-6), the loss
+    histories of run_finetune and of run_distill (rtol 1e-4), and the card's
+    distilled draft attached: speculative tokens equal plain greedy's (the
+    float32 gate)."""
+    from whisper_tpu_torch import load_model
+    from whisper_tpu_torch.distill import run_distill
+    from whisper_tpu_torch.finetune import batches, model_tokenizer, run_finetune
+    from whisper_tpu_torch.parallel.train import device_batch, init_train_state, loss_fn
+
+    dims = ModelDimensions(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    params = tiny_params(dims, seed=11)
+    models = {
+        "card": Whisper(dims, params, device=DEV, compute_dtype=torch.float32),
+        "cpu": Whisper(dims, params, device="cpu", compute_dtype=torch.float32),
+    }
+    tok = model_tokenizer(models["cpu"], "en")
+    batch = next(batches(train_records(), tok, n_mels=80, batch_size=2, max_tokens=48))
+    grads, losses, ft, dl = {}, {}, {}, {}
+    kw = dict(steps=4, batch_size=2, learning_rate=1e-3, max_tokens=48, log=lambda *_: None)
+    for dev, m in models.items():
+        p = init_train_state(m.params, 1e-3, 0.01).params
+        loss = loss_fn(p, device_batch(batch, m.device), n_audio_head=2, n_text_head=2)
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = {k: v.grad.cpu() for k, v in flatten_tree(p)}
+        ft[dev] = run_finetune(m, train_records(), out_dir=train_dir(f"tiny_ft_{dev}"), **kw)
+        dl[dev] = run_distill(m, TINY_STUDENT, train_records(), out_dir=train_dir(f"tiny_draft_{dev}"), **kw)
+    worst = 0.0
+    for k, g in grads["card"].items():
+        want = grads["cpu"][k]
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-4, atol=1e-6, err_msg=k)
+        worst = max(worst, (g - want).abs().max().item())
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5)
+    np.testing.assert_allclose(ft["card"], ft["cpu"], rtol=1e-4)
+    np.testing.assert_allclose(dl["card"], dl["cpu"], rtol=1e-4)
+    falling(ft["card"], "tiny fine-tune")
+    falling(dl["card"], "tiny distillation")
+
+    gpu = models["card"]
+    draft = load_model(os.path.join(TRAIN_DIR, "tiny_draft_card"), device=DEV, compute_dtype=torch.float32)
+    window = first_window(gpu, load_audio(JFK_PATH))
+    opts = DecodingOptions(language="en", temperature=0.0)
+    plain = decode(gpu, window, opts)
+    gpu.set_draft_model(draft, k=4)
+    try:
+        reset_launch_counts()
+        spec = decode(gpu, window, opts)
+        counts = launch_counts()
+    finally:
+        gpu.set_draft_model(None)
+    if spec.tokens != plain.tokens or not counts["greedy_argmax_rows"]:
+        raise AssertionError(f"float32: the distilled draft's tokens differ ({counts})")
+    return dict(
+        grad_max_abs_err=worst, loss=losses, finetune_losses=ft, distill_losses=dl,
+        spec_tokens_equal_f32=True, spec_tokens=len(spec.tokens),
+    )  # fmt: skip
+
+
+def train_profile(model):
+    """One profiled turbo train step at batch 2 (after an unprofiled one):
+    its wall ms, device-busy ms (the union of the kernels' intervals), idle
+    share, kernel count, and the five kernels of most device time (summed
+    by name), the user annotations (AdamW's range) left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.finetune import batches, model_tokenizer
+    from whisper_tpu_torch.parallel.train import make_train_step
+
+    tok = model_tokenizer(model, "en")
+    batch = next(batches(train_records(), tok, n_mels=model.dims.n_mels, batch_size=2, max_tokens=128))
+    init_state, train_step = make_train_step(model.dims, learning_rate=1e-3)
+    state = init_state(model.params)
+    state, loss = train_step(state, batch)
+    float(loss)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = train_step(state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        # the optimizer's range also shows on the card's timeline: not a kernel
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    )
+    busy, end, by_name = 0.0, spans[0][0], {}
+    for start, stop, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + stop - start
+        start = max(start, end)
+        if stop > start:
+            busy, end = busy + stop - start, stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    del state
+    torch.cuda.empty_cache()
+    return dict(
+        wall_ms=wall * 1e3, device_busy_ms=busy / 1e3, device_idle_share=1 - busy / 1e3 / (wall * 1e3),
+        kernels=len(spans), top5=[dict(name=n[:120], ms=us / 1e3) for n, us in top],
+    )  # fmt: skip
+
+
+def train_phase(model, jfk, card):
+    """The training slice: the Function's gradients, card against CPU at
+    tiny dims, the turbo fine-tune with the backward's unbind / select
+    timing, the turbo distillation. Returns the launches of its decodes
+    (the counts set to 0 before each and read after it)."""
+    t = time.perf_counter()
+    log(json.dumps({"phase": "train_matmul_grads", **matmul_grads(model.dims)}))
+    log(json.dumps({"phase": "train_card_vs_cpu", **train_card_vs_cpu()}))
+    ft, ft_counts = finetune_phase(model, jfk)
+    log(json.dumps({"phase": "train_finetune", **ft, "launches": ft_counts, "card": card}))
+    log(json.dumps({"phase": "train_backward", **backward_ms(model), "card": card}))
+    dl, dl_counts = distill_phase(model, jfk)
+    log(json.dumps({"phase": "train_distill", **dl, "launches": dl_counts, "card": card}))
+    counts = {k: ft_counts[k] + dl_counts[k] for k in ft_counts}
+    if not counts["greedy_argmax"] or not counts["greedy_argmax_rows"]:
+        raise AssertionError(f"the train phase launched a greedy kernel no time: {counts}")
+    log(json.dumps({"phase": "train", "seconds": time.perf_counter() - t, "launches": counts}))
+    return counts
+
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2740,9 +3142,10 @@ def main():
     log(json.dumps({"phase": "f32_products", **f32_products()}))
     for name, r in kernels.items():
         log(json.dumps({"phase": "kernel", "name": name, **r, "card": card}))
-    log(json.dumps({"phase": "yardstick", "library_ms": None,
-                    "note": "no single PyTorch call computes the filtered update or the "
-                            "DTW trace"}))  # fmt: skip
+    log(json.dumps({"phase": "yardstick",
+                    "note": "library_ms of the update kernels is torch.topk on the same rows, "
+                            "which computes none of the filters; no single PyTorch call "
+                            "computes the DTW trace"}))  # fmt: skip
 
     log(json.dumps({"phase": "card_vs_cpu", **card_vs_cpu()}))
 
@@ -2769,7 +3172,7 @@ def main():
         ("greedy_t0", audio, dict(temperature=0.0)),
         ("greedy_t0_draft", audio, dict(temperature=0.0, draft=draft)),
     ]:  # fmt: skip
-        stats, counts = main_path(model, clip, **kw)
+        stats, counts, _ = main_path(model, clip, **kw)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         log(json.dumps({"phase": "main_path", "run": name, **stats, "launches": counts,
@@ -2810,6 +3213,8 @@ def main():
     log(json.dumps({"phase": "int8_spec", "seconds": time.perf_counter() - t}))
     log(json.dumps({"phase": "card_vs_cpu_serving", **card_vs_cpu_serving()}))
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    for k, v in train_phase(model, jfk, card).items():
+        launches[k] = launches.get(k, 0) + v
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     for beam_size in (None, 5):
         profile = decode_loop_profile(model, audio, beam_size)
@@ -2817,6 +3222,7 @@ def main():
         log(json.dumps({"phase": "loop_profile", **profile, "card": card}))
         log(json.dumps({"phase": "int8_vs_bf16", **int8_profile(model, audio, beam_size, tokens),
                         "card": card}))  # fmt: skip
+    log(json.dumps({"phase": "train_profile", **train_profile(model), "card": card}))
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),

@@ -37,6 +37,8 @@ def test_import_without_jax():
         "import whisper_tpu_torch.streaming, whisper_tpu_torch.continuous\n"
         "import whisper_tpu_torch.server, whisper_tpu_torch.http_server, whisper_tpu_torch.version\n"
         "import whisper_tpu_torch.quant, whisper_tpu_torch.speculative\n"
+        "import whisper_tpu_torch.checkpoint, whisper_tpu_torch.finetune, whisper_tpu_torch.distill\n"
+        "import whisper_tpu_torch.parallel.train\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -112,6 +114,9 @@ def test_package_data_lists_the_new_modules():
     assert 'whisper-tpu-torch = "whisper_tpu_torch.cli:cli"' in text
     assert 'whisper-tpu-torch-serve = "whisper_tpu_torch.server:main"' in text
     assert 'whisper-tpu-torch-http = "whisper_tpu_torch.http_server:main"' in text
+    assert 'whisper-tpu-torch-finetune = "whisper_tpu_torch.finetune:main"' in text
+    assert 'whisper-tpu-torch-distill = "whisper_tpu_torch.distill:main"' in text
+    assert '"whisper_tpu_torch.parallel"' in text
     assert os.path.isfile(os.path.join(PKG, "normalizers", "english.json"))
 
 
@@ -138,3 +143,20 @@ def test_servers_default_to_cuda(tmp_path, synth_checkpoint, module):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([*args, "--model", synth_checkpoint])
     assert not os.path.exists(tmp_path / "s.sock")
+
+
+@pytest.mark.parametrize("module", ["finetune", "distill"])
+def test_training_mains_default_to_cuda(tmp_path, synth_checkpoint, module):
+    """finetune and distill load their model on the card unless --device
+    says otherwise: without one that is an error, before any checkpoint
+    is written."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import importlib
+
+    main = importlib.import_module(f"whisper_tpu_torch.{module}").main
+    manifest = tmp_path / "m.jsonl"
+    manifest.write_text('{"audio": "a.flac", "text": "x"}\n')
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(manifest), "--model", synth_checkpoint, "--out", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")

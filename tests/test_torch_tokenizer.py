@@ -86,3 +86,33 @@ def test_split_to_word_tokens_matches():
         mine = get_tokenizer(True, language=language)
         ids = ref.encode(" Hello, world! It's 日本語 text.") + [ref.eot]
         assert mine.split_to_word_tokens(ids) == ref.split_to_word_tokens(ids)
+
+
+SPECIAL_TEXTS = [
+    " a literal <|it|> in a transcript",
+    "<|endoftext|>",
+    " at <|0.00|> then <|startoftranscript|><|en|><|notimestamps|>",
+    "<| it |> <|not a token|> <|",
+]
+
+
+@pytest.mark.parametrize("multilingual", [True, False])
+@pytest.mark.parametrize("text", SPECIAL_TEXTS)
+def test_disallowed_special_matches_tiktoken(multilingual, text):
+    """disallowed_special=() encodes special-token strings as ordinary text,
+    as tiktoken does; the default refuses them (and only them)."""
+    ref = jax_tokenizer(multilingual, language="en", task="transcribe")
+    mine = get_tokenizer(multilingual, language="en", task="transcribe")
+    ids = mine.encode(text, disallowed_special=())
+    assert ids == ref.encode(text, disallowed_special=())
+    assert mine.decode(ids) == text
+    holds_special = any(s in text for s in ref.encoding.special_tokens_set)
+    for tok in (ref, mine):
+        if holds_special:
+            with pytest.raises(ValueError):
+                tok.encode(text)
+        else:
+            assert tok.encode(text) == ids
+    if "<|it|>" in text:  # a named subset refuses its own
+        with pytest.raises(ValueError, match="special token"):
+            mine.encoding.encode(text, disallowed_special=["<|it|>"])

@@ -5,8 +5,10 @@ Public API: `load_model`, `save_model`, `available_models`, `transcribe`,
 `ContinuousBatcher`, `decode`, `DecodingOptions`, `DecodingResult`,
 `detect_language`, `log_mel_spectrogram`, `pad_or_trim`, `load_audio`,
 `__version__`. The servers are `whisper_tpu_torch.server` (unix socket)
-and `whisper_tpu_torch.http_server` (HTTP). Models run on the CUDA card
-unless the caller passes another device (the tests pass device="cpu").
+and `whisper_tpu_torch.http_server` (HTTP); fine-tuning and draft
+distillation are `whisper_tpu_torch.finetune` and `whisper_tpu_torch.distill`.
+Models run on the CUDA card unless the caller passes another device (the
+tests pass device="cpu").
 """
 
 import os
@@ -20,7 +22,7 @@ from .batch import transcribe_batch, transcribe_chunked
 from .continuous import ContinuousBatcher
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import MODEL_DIMS, ModelDimensions
-from .models.params import load_params_npz, params_from_torch_state_dict
+from .models.params import flatten_tree, load_params_npz, params_from_torch_state_dict
 from .models.registry import ALIGNMENT_HEADS, available_models, download_checkpoint
 from .models.whisper import Whisper, resolve_device
 from .quant import check_weights_mode
@@ -69,8 +71,10 @@ def load_model(
 ) -> Whisper:
     """Load a model by registry name (the cached official checkpoint under
     `download_root`, downloaded and SHA256-verified when missing, with its
-    published alignment heads), from a local openai/whisper `.pt` checkpoint
-    or a `.npz` written by `save_model` or the JAX package, or — with
+    published alignment heads), from a checkpoint directory holding
+    dims.json (checkpoint.py: written by finetune and distill), from a local
+    openai/whisper `.pt` checkpoint or a `.npz` written by `save_model` or
+    the JAX package, or — with
     `name=None` and `dims` — build one with random weights drawn from
     `seed` on the device. `weights="int8"` makes its decode loops run on
     weight-only int8 (quant.py; the model keeps its own weights)."""
@@ -84,6 +88,10 @@ def load_model(
     elif name in available_models():
         dims, params = _load_torch_checkpoint(download_checkpoint(name, download_root))
         alignment_heads = ALIGNMENT_HEADS[name]
+    elif os.path.isdir(name) and os.path.exists(os.path.join(name, "dims.json")):
+        from .checkpoint import load_checkpoint
+
+        params, dims, _ = load_checkpoint(name)
     elif os.path.isfile(name):
         if name.endswith(".npz"):
             tree = load_params_npz(name)
@@ -103,16 +111,10 @@ def load_model(
 def save_model(model: Whisper, path: str):
     """Write a model as `.npz`: "params/<path>" float32 arrays and
     "dims/<field>" int64 scalars (whisper_tpu/__init__.py's layout)."""
-    flat = {}
-
-    def walk(tree, prefix):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}/")
-            else:
-                flat[f"{prefix}{k}"] = v.detach().to("cpu", torch.float32).numpy()
-
-    walk(model.params, "params/")
+    flat = {
+        f"params/{k}": v.detach().to("cpu", torch.float32).numpy()
+        for k, v in flatten_tree(model.params)
+    }
     for k, v in model.dims.__dict__.items():
         flat[f"dims/{k}"] = np.int64(v)
     np.savez(path, **flat)

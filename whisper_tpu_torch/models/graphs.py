@@ -10,6 +10,7 @@ layouts, so that the tests compare like with like:
   alignment_outputs  the word-timing replay    -> text_probs (P,), cost matrix (P, 1500)
   decode_step token (B,) + KV cache (L, 2, B, 448, d) -> logits (B, V) f32, cache
   decode_chunk K tokens (B, K) at per-row slots pos (B,) -> logits (B, K, V) f32, cache
+  decoder_forward  tokens (B, T) teacher-forced    -> logits (B, T, V) f32
 
 LayerNorm epsilons are 1e-7 in the audio encoder and 1e-5 in the text
 decoder; GELU is exact. Attention scores and the logits are float32
@@ -54,13 +55,9 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, T, H * dh)
 
 
-def matmul_f32(a, b):
-    """a @ b as a float32 result, the products summed in float32 and never
-    rounded to the operands' dtype. On the card cuBLAS reads bf16 operands
-    and writes f32 (out_dtype); elsewhere the operands are widened first,
-    which gives the same products."""
-    if not a.is_cuda or a.dtype == torch.float32:
-        return a.float() @ b.float()
+def _mm_f32(a, b):
+    """cuBLAS's product of two bf16 (or f16) operands written as float32;
+    a's and b's batch dims broadcast."""
     if a.dim() == b.dim() == 2:
         return torch.mm(a, b, out_dtype=torch.float32)
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
@@ -68,6 +65,43 @@ def matmul_f32(a, b):
     a3 = a.expand(*batch, m, k).reshape(-1, m, k)
     b3 = b.expand(*batch, k, n).reshape(-1, k, n)
     return torch.bmm(a3, b3, out_dtype=torch.float32).view(*batch, m, n)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`_mm_f32` with a gradient: autograd has none for the out_dtype
+    overloads of mm and bmm. Each operand's gradient is the product of the
+    float32 cotangent with the other operand widened, summed over the dims
+    it was broadcast along in float32, then rounded to the operand's dtype
+    (JAX's transpose of a dot_general with preferred_element_type=float32).
+    Only the operands are saved, never the float32 output."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().mT).sum_to_size(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().mT @ g).sum_to_size(b.shape).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """a @ b as a float32 result, the products summed in float32 and never
+    rounded to the operands' dtype. On the card cuBLAS reads bf16 operands
+    and writes f32 (out_dtype), through `_MatmulF32` where a gradient is
+    wanted; elsewhere the operands are widened first, which gives the same
+    products."""
+    if not a.is_cuda or a.dtype == torch.float32:
+        return a.float() @ b.float()
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return _mm_f32(a, b)
 
 
 def _dot(x, blk, name):
@@ -120,6 +154,14 @@ def _layer(tree, l):
     return {k: v[l] for k, v in tree["blocks"].items()}
 
 
+def _layers(tree):
+    """Every layer's weights, each stacked leaf split by one unbind. Under
+    autograd its backward writes the stacked gradient once; indexing layer
+    by layer would write a zero tensor of the whole stack per layer."""
+    blocks = tree["blocks"]
+    return [dict(zip(blocks, ws)) for ws in zip(*(v.unbind(0) for v in blocks.values()))]
+
+
 def encode(enc, mel, *, n_head):
     """mel: (B, n_mels, 3000) -> (B, 1500, d) audio features."""
     blocks = enc["blocks"]
@@ -129,8 +171,7 @@ def encode(enc, mel, *, n_head):
     x = F.gelu(F.conv1d(x, enc["conv2_w"], enc["conv2_b"], stride=2, padding=1))
     x = x.transpose(1, 2) + enc["pos_emb"]  # (B, 1500, d)
 
-    for l in range(blocks["attn_q_w"].shape[0]):
-        blk = _layer(enc, l)
+    for blk in _layers(enc):
         h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-7)
         q = h @ blk["attn_q_w"] + blk["attn_q_b"]
         k = h @ blk["attn_k_w"]
@@ -152,11 +193,9 @@ def cross_kv(dec, xa, *, n_head):
     def split(y):  # (B, T, d) -> (B, H, dh, T)
         return y.view(B, T, n_head, dh).permute(0, 2, 3, 1)
 
-    L = blocks["cross_k_w"].shape[0]
-    ck = torch.stack([split(xa @ blocks["cross_k_w"][l]) for l in range(L)])
-    cv = torch.stack(
-        [split(xa @ blocks["cross_v_w"][l] + blocks["cross_v_b"][l]) for l in range(L)]
-    )
+    ck = torch.stack([split(xa @ w) for w in blocks["cross_k_w"].unbind(0)])
+    vs = zip(blocks["cross_v_w"].unbind(0), blocks["cross_v_b"].unbind(0))
+    cv = torch.stack([split(xa @ w + b) for w, b in vs])
     return ck, cv
 
 
@@ -198,9 +237,10 @@ def _mlp(x, blk):
     return _dot(h, blk, "mlp_fc2_w") + blk["mlp_fc2_b"]
 
 
-def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
+def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads, keep_kv=True):
     """The prefill's layers; also collects the float32 cross-attention
-    scores (B, P, Tk) of each (layer, head) in alignment_heads."""
+    scores (B, P, Tk) of each (layer, head) in alignment_heads. Without
+    keep_kv the K/V stack is None."""
     blocks = dec["blocks"]
     B, P = tokens.shape
     dev = tokens.device
@@ -216,8 +256,7 @@ def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
     align = [None] * len(alignment_heads)
 
     kv = []
-    for l in range(blocks["attn_q_w"].shape[0]):
-        blk = _layer(dec, l)
+    for l, blk in enumerate(_layers(dec)):
         h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
         k = _dot(h, blk, "attn_k_w")
@@ -232,8 +271,10 @@ def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads):
             attn = _cross_attention(x, blk, ck_l, cv_l, n_head)
         x = x + attn
         x = x + _mlp(x, blk)
-        kv.append(torch.stack([k, v]))
-    return layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5), torch.stack(kv), align
+        if keep_kv:
+            kv.append(torch.stack([k, v]))
+    kv = torch.stack(kv) if keep_kv else None
+    return layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5), kv, align
 
 
 def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
@@ -257,6 +298,17 @@ def prefill_with_alignment(dec, tokens, n_valid, ck, cv, *, n_head, alignment_he
         raise ValueError(f"the alignment replay runs one sequence, got {tokens.shape[0]}")
     hidden, kv, align = _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads)
     return hidden, kv, torch.stack(align)[:, 0]
+
+
+def decoder_forward(dec, tokens, ck, cv, *, n_head):
+    """The teacher-forced decoder over full sequences, the training forward
+    (whisper_tpu/models/graphs.py decoder_forward): the prefill's layers at
+    n_valid = T, which is the plain causal mask, keeping no K/V.
+
+    tokens: (B, T) int; ck/cv: (L, B, H, dh, 1500). Returns logits (B, T,
+    V) float32."""
+    hidden, _, _ = _prefill(dec, tokens, tokens.shape[1], ck, cv, n_head, (), keep_kv=False)
+    return hidden_to_logits(dec, hidden)
 
 
 def alignment_cost_matrix(align, n_valid, n_frames_half, qk_scale, medfilt_width):

@@ -116,9 +116,32 @@ def init_random_params(
     return _build_param_tree(dims, w, zeros, ones, pos_emb)
 
 
-def _map_tree(tree: Dict, fn, prefix: str = "") -> Dict:
+def init_random_params_host(dims: ModelDimensions, seed: int = 0) -> Dict:
+    """Random float32 CPU parameters drawn with numpy's RandomState(seed),
+    N(0, 0.02), in the order of whisper_tpu/models/params.py
+    init_random_params (copied), so that one seed gives the same tree in
+    both packages."""
+    rng = np.random.RandomState(seed)
+
+    def w(*shape):
+        return torch.from_numpy(rng.normal(0.0, 0.02, size=shape).astype(np.float32))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32)
+
+    def pos_emb():
+        return torch.from_numpy(sinusoid_position_embedding(dims.n_audio_ctx, dims.n_audio_state))
+
+    return _build_param_tree(dims, w, zeros, ones, pos_emb)
+
+
+def map_tree(tree: Dict, fn, prefix: str = "") -> Dict:
+    """The tree of fn(path, leaf) for each leaf, paths joined with '/'."""
     return {
-        k: _map_tree(v, fn, f"{prefix}{k}/") if isinstance(v, dict) else fn(f"{prefix}{k}", v)
+        k: map_tree(v, fn, f"{prefix}{k}/") if isinstance(v, dict) else fn(f"{prefix}{k}", v)
         for k, v in tree.items()
     }
 
@@ -137,7 +160,7 @@ def cast_params(params: Dict, dtype, device) -> Dict:
         keep_f32 = any(path.endswith(k) for k in _LN_KEYS)
         return t.to(device=device, dtype=torch.float32 if keep_f32 else dtype)
 
-    return _map_tree(params, cast)
+    return map_tree(params, cast)
 
 
 def params_from_jax(tree: Dict) -> Dict:
@@ -150,7 +173,7 @@ def params_from_jax(tree: Dict) -> Dict:
         a = np.asarray(v)
         return torch.from_numpy(a.astype(np.int8 if a.dtype == np.int8 else np.float32))
 
-    return _map_tree(tree, leaf)
+    return map_tree(tree, leaf)
 
 
 def params_from_torch_state_dict(state_dict, dims: ModelDimensions) -> Dict:
@@ -219,15 +242,29 @@ def params_from_torch_state_dict(state_dict, dims: ModelDimensions) -> Dict:
     }
 
 
+def flatten_tree(tree: Dict, prefix: str = ""):
+    """(path, leaf) pairs of a nested tree, paths joined with '/'."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flatten_tree(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def unflatten_tree(items) -> Dict:
+    """The nested tree of (path, leaf) pairs with '/'-joined paths."""
+    tree: Dict = {}
+    for key, leaf in items:
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
 def load_params_npz(path: str) -> Dict:
     """A flat '<a>/<b>/<leaf>' .npz (the JAX package's format) as a nested
     dict of numpy arrays."""
-    tree: Dict = {}
     with np.load(path) as flat:
-        for key in flat.files:
-            parts = key.split("/")
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = flat[key]
-    return tree
+        return unflatten_tree((key, flat[key]) for key in flat.files)

@@ -11,7 +11,7 @@ from torch import nn
 
 from . import graphs
 from .dims import ModelDimensions
-from .params import cast_params, init_random_params
+from .params import cast_params, flatten_tree, init_random_params
 
 
 def resolve_device(device) -> torch.device:
@@ -45,7 +45,7 @@ class Whisper(nn.Module):
         if params is None:
             params = init_random_params(dims, seed=seed, dtype=compute_dtype, device=self.device)
         self.params = cast_params(params, compute_dtype, self.device)
-        for path, t in _flatten(self.params):
+        for path, t in flatten_tree(self.params):
             self.register_buffer(path.replace("/", "__"), t, persistent=True)
         # word timing aligns on these cross-attention heads; the default is
         # every head of the upper half of the decoder's layers
@@ -207,10 +207,3 @@ class Whisper(nn.Module):
 
         return transcribe_fn(self, audio, **kwargs)
 
-
-def _flatten(tree: Dict, prefix: str = ""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flatten(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v

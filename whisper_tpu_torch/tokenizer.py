@@ -20,7 +20,7 @@ import string
 import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import Collection, Dict, List, Optional, Tuple, Union
 
 ASSETS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "whisper_tpu", "assets"
@@ -172,9 +172,15 @@ class Encoding:
             return self._special[token]
         return self._ranks[token.encode("utf-8")]
 
-    def encode(self, text: str) -> List[int]:
+    def encode(self, text: str, *, disallowed_special: Union[str, Collection[str]] = "all") -> List[int]:
+        """tiktoken's encode with no allowed_special: a special-token string
+        of `disallowed_special` ("all": every one) in the text raises
+        ValueError; any other, all of them with `()`, encodes as ordinary
+        text."""
+        if disallowed_special == "all":
+            disallowed_special = self._special
         if "<|" in text:
-            for special in self._special:
+            for special in disallowed_special:
                 if special in text:
                     raise ValueError(f"text contains the special token {special!r}")
         out: List[int] = []
@@ -213,8 +219,8 @@ class Tokenizer:
             seq.append(self.transcribe if self.task == "transcribe" else self.translate)
         self.sot_sequence = tuple(seq)
 
-    def encode(self, text: str) -> List[int]:
-        return self.encoding.encode(text)
+    def encode(self, text: str, **kwargs) -> List[int]:
+        return self.encoding.encode(text, **kwargs)
 
     def decode(self, token_ids: List[int]) -> str:
         token_ids = [t for t in token_ids if t < self.timestamp_begin]
