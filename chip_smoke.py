@@ -147,6 +147,22 @@ Phases (any failure raises and the script exits non-zero):
      T = 0 (tokens against plain greedy reported in bf16, acceptance,
      tokens a round); the greedy launches of these decodes count on the
      main path;
+  parallel. the mesh (whisper_tpu_torch/parallel/), ranks spawned from
+     here after the build (parallel/launch.py): (a) a world of one over
+     NCCL, the turbo bf16 model transcribing the clip greedy and at beam 5
+     (T = 0) plain and under set_mesh(make_mesh()) in turns, tokens equal,
+     one fine-tune step with and without the mesh, equal losses, and one
+     NCCL all-reduce's host ms; (b) two ranks sharing the card over gloo,
+     turbo width with the encoder cut to 8 of 32 layers, float32, TF32 off:
+     DataParallelEngine at dp = 2 and tp = 2 on two windows, greedy and
+     beam 5, tokens, steps and beam pools equal to the plain engine's; the
+     speculative engine at dp = 2 (plain greedy's tokens); sp_encode at sp
+     = 2 and pp_encode at pp = 2 within 1e-3 of encode; a 2-step tp = 2
+     fine-tune within rtol 1e-4 of the single-device losses;
+     transcribe(jfk, word_timestamps=True) at tp = 2, words and times equal
+     to the plain model's; a gloo all-reduce's host ms. Per-rank ms per
+     token beside the plain engine's, each part's seconds; the mesh runs'
+     launches, summed over the ranks, count on the main path;
   6. profile one greedy window and one beam-5 window of decode() at turbo
      width, each with bf16 weights and then with int8 weights (launches,
      the common prefix of their tokens, and where they part, each mode's
@@ -2680,10 +2696,14 @@ def with_draft(model, draft, fn):
         model.set_draft_model(None)
 
 
+PROFILE_STEPS = 48  # the profiled window's sample_len: reading a 224-step trace was most of the profiles' time
+
+
 def decode_loop_profile(model, audio, beam_size=None):
     """One window of decode() at the model's width, greedy or beam search:
-    the engine's wall ms per step (host clock, unprofiled runs) and, from a
-    profiled run, between the first and the last update launch, the
+    the engine's wall ms per step (host clock, three unprofiled runs of the
+    whole window) and its tokens; from a profiled run of its first
+    PROFILE_STEPS steps, between the first and the last update launch, the
     device-busy ms per step (the union of the kernels' intervals), the
     kernels per step, the update kernel's device ms per step, and the
     host's ms per step blocked in device-to-host reads
@@ -2695,13 +2715,13 @@ def decode_loop_profile(model, audio, beam_size=None):
     update = "beam_update_kernel" if beam_size else "greedy_argmax_kernel"
     walls = []
     for _ in range(3):
-        decode(model, window, opts)
+        result = decode(model, window, opts)
         # the engine of the model's weights mode (decode() may build it)
         _, _, steps, seconds = model._fused_engine.history[-1]
         walls.append(seconds / steps * 1e3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        result = decode(model, window, opts)
+        decode(model, window, dataclasses.replace(opts, sample_len=PROFILE_STEPS))
         torch.cuda.synchronize()
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
@@ -3120,7 +3140,267 @@ def train_phase(model, jfk, card):
 
 
 
+MESH_ENCODER_LAYERS = 8  # (b)'s turbo-width model: the encoder cut from 32 layers
+
+
+def two_windows(model, audio):
+    """The clip's first two 30 s mel windows on the card, (2, n_mels, 3000)."""
+    from whisper_tpu_torch.ops.stft import device_mel_full, device_mel_window
+
+    mel, _ = device_mel_full(audio, model.dims.n_mels, DEV)
+    return torch.stack([device_mel_window(mel, seek, 3000) for seek in (0, 3000)])
+
+
+def segment_tokens(result):
+    return [s["tokens"] for s in result["segments"]]
+
+
+def engine_ms(engine):
+    """Wall ms per step of the engine's latest run (its history)."""
+    _, _, steps, seconds = engine.history[-1]
+    return seconds / steps * 1e3
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def allreduce_ms(group, shape, reps=100):
+    """Host ms of one dist.all_reduce of a float32 tensor of `shape` on the
+    card over `group`, synchronized after each (the median of `reps`, after
+    one untimed)."""
+    x = torch.ones(shape, device=DEV)
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        if i >= 1:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_world1(audio):
+    """(a), in the one rank of a world of one over NCCL: the turbo model
+    (bf16, seed 0) transcribes the clip greedy and at beam 5 (T = 0) in
+    turns plain, then under set_mesh(make_mesh()): the tokens must be
+    equal (dp = tp = 1 runs no collective, so the arithmetic is the plain
+    model's). Then one fine-tune step through make_train_step
+    with and without the mesh: equal losses; and the host ms of one NCCL
+    all-reduce of a decode step's activation at world 1. Returns the mesh
+    runs' launches and each run's ms per token."""
+    from whisper_tpu_torch.finetune import batches, model_tokenizer
+    from whisper_tpu_torch.parallel import make_mesh
+    from whisper_tpu_torch.parallel.train import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    model = Whisper(MODEL_DIMS["turbo"], None, device=DEV, compute_dtype=torch.bfloat16, seed=0)
+    model.transcribe(audio[: 16000 * 5], language="en", temperature=0.0, verbose=None)  # warm-up
+    runs = {"greedy": dict(temperature=0.0), "beam5": dict(beam_size=5, temperature=0.0)}
+    out, counts = {"backend": torch.distributed.get_backend()}, {}
+    mesh = make_mesh()
+    for name, kw in runs.items():
+        plain, ms = None, {"plain": [], "mesh": []}
+        for which in ("plain", "mesh"):
+            model.set_mesh(mesh if which == "mesh" else None)
+            reset_launch_counts()
+            got = segment_tokens(model.transcribe(audio, language="en", verbose=None, **kw))
+            torch.cuda.synchronize()
+            if which == "mesh":
+                add_counts(counts, launch_counts())
+                out["engine"] = type(model._fused_engine).__name__
+            ms[which].append(engine_ms(model._fused_engine))
+            plain = got if plain is None else plain
+            if got != plain:
+                raise AssertionError(f"(a) {name}: the {which} run's tokens differ from the plain model's")
+        out.update({f"{name}_{k}_ms_per_token": v for k, v in ms.items()})
+    model.set_mesh(None)
+    out["nccl_allreduce_ms_1x1280"] = allreduce_ms(None, (1, 1, 1280))
+    batch = next(batches(train_records(), model_tokenizer(model, "en"), n_mels=128, batch_size=2, max_tokens=128))
+    losses = []
+    for m in (None, mesh):
+        init_state, step = make_train_step(model.dims, m, learning_rate=1e-3)
+        state, loss = step(init_state(model.params), batch)
+        losses.append(float(loss))
+        del state
+        torch.cuda.empty_cache()
+    if losses[0] != losses[1] or not np.isfinite(losses[0]):
+        raise AssertionError(f"(a) the mesh's fine-tune step loss {losses[1]} != {losses[0]}")
+    out.update(finetune_step_loss=losses[0], launches=counts)
+    return out
+
+
+def mesh_world2(audio, jfk):
+    """(b), in each rank of a world of two sharing the card over gloo: the
+    turbo-width model with its encoder cut to MESH_ENCODER_LAYERS layers,
+    float32 with TF32 off (seed 0). DataParallelEngine at dp = 2 and at tp
+    = 2 on two windows, greedy and beam 5, against the plain engine on the
+    same engine arguments: equal tokens, step count and beam pools; the
+    speculative engine at tp = 2 with the 5g draft (float32): plain greedy's
+    tokens; sp_encode at sp = 2 and pp_encode at pp = 2 against encode
+    (max abs error, within 1e-3); 2 fine-tune steps at tp = 2 against
+    single-device ones (rtol 1e-4) and the gathered tree's largest
+    difference from the single-device one; transcribe(jfk,
+    word_timestamps=True) at tp = 2 against the plain model: equal words
+    and times; the host ms of one gloo all-reduce over the tp group of a
+    decode step's activation and of a training one. Every rank runs every
+    part, so each plain run shares the card with the other rank's. The
+    speculative engine runs at dp = 2: at tp = 2 its ~1,000 draft steps
+    would each pay the gloo all-reduces (the CPU tests hold it at tp = 2).
+    Returns the mesh runs' launches, ms per token and each part's seconds."""
+    from whisper_tpu_torch.finetune import batches, model_tokenizer
+    from whisper_tpu_torch.parallel import (
+        DataParallelEngine, DataParallelSpeculativeEngine, make_mesh, pp_encode, shard_params,
+        sp_encode,
+    )  # fmt: skip
+    from whisper_tpu_torch.parallel.sharding import gather_params
+    from whisper_tpu_torch.parallel.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    dims = dataclasses.replace(MODEL_DIMS["turbo"], n_audio_layer=MESH_ENCODER_LAYERS)
+    model = Whisper(dims, None, device=DEV, compute_dtype=torch.float32, seed=0)
+    meshes = {k: make_mesh(**{k[:2]: 2}) for k in ("dp2", "tp2", "sp2", "pp2")}
+    mel = two_windows(model, audio)
+    out, counts, seconds = {"backend": torch.distributed.get_backend()}, {}, {}
+    clock = [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    for beam in (None, 5):
+        what = "beam5" if beam else "greedy"
+        (args, kw), _ = engine_call(model, mel, DecodingOptions(language="en", temperature=0.0, beam_size=beam))
+        plain_engine = FusedEngine(model)
+        want = plain_engine.run(*args, **kw)
+        out[f"{what}_plain_ms_per_token"] = engine_ms(plain_engine)
+        for name in ("dp2", "tp2"):
+            engine = DataParallelEngine(model, meshes[name])
+            reset_launch_counts()
+            got = engine.run(*args, **kw)
+            torch.cuda.synchronize()
+            add_counts(counts, launch_counts())
+            n = want[1]
+            same = got[1] == n and np.array_equal(got[0][:, :n], want[0][:, :n])
+            if beam:
+                same = same and np.array_equal(got[4], want[4]) and np.array_equal(got[7], want[7])
+            if not same:
+                raise AssertionError(f"(b) {name} {what}: the engine's tokens differ from the plain engine's")
+            out[f"{what}_{name}_ms_per_token"] = engine_ms(engine)
+            part(f"{what}_{name}")
+        if not beam:
+            draft = spec_draft(torch.float32)
+            dck, dcv = draft.cross_kv(draft.encode(mel))
+            spec = DataParallelSpeculativeEngine(model, draft, meshes["dp2"], k=4)
+            reset_launch_counts()
+            got = spec.run(*args, dck, dcv, **kw)
+            torch.cuda.synchronize()
+            add_counts(counts, launch_counts())
+            n = want[1]
+            if got[1] != n or not np.array_equal(got[0][:, :n], want[0][:, :n]):
+                raise AssertionError("(b) dp2 speculative: tokens differ from plain greedy's")
+            stats = spec.last_stats
+            out["spec_dp2_tokens_per_round"] = sum(stats["emitted"]) / max(sum(stats["rounds"]), 1)
+            part("spec_dp2")
+
+    xa = model.encode(mel)
+    for name, build_fn in (("sp2", sp_encode), ("pp2", pp_encode)):
+        got = build_fn(model, meshes[name])(shard_params(model.params["encoder"], meshes[name]), mel)
+        err = float((got - xa).abs().max())
+        out[f"{name}_encode_max_abs_err"] = err
+        if not err <= 1e-3:
+            raise AssertionError(f"(b) {name}_encode differs from encode by {err}")
+    part("encoders")
+
+    tok = model_tokenizer(model, "en")
+    data = batches(train_records(), tok, n_mels=128, batch_size=2, max_tokens=128)
+    steps = [next(data) for _ in range(2)]
+    histories, trees = [], []
+    for m in (None, meshes["tp2"]):
+        init_state, step = make_train_step(model.dims, m, learning_rate=1e-3)
+        state = init_state(model.params)
+        histories.append([float(step(state, b)[1]) for b in steps])
+        tree = state.params if m is None else gather_params(state.params, m)
+        trees.append({k: v.detach() for k, v in flatten_tree(tree)})
+        del state
+        torch.cuda.empty_cache()
+    if not np.allclose(histories[1], histories[0], rtol=1e-4, atol=0):
+        raise AssertionError(f"(b) tp2 fine-tune losses {histories[1]} vs single-device {histories[0]}")
+    out["finetune_losses"] = histories
+    out["finetune_params_max_abs_diff"] = max(float((trees[1][k] - v).abs().max()) for k, v in trees[0].items())
+    del trees
+    part("finetune")
+
+    words = dict(language="en", temperature=0.0, word_timestamps=True, verbose=None)
+    want = words_of(model.transcribe(jfk, **words))
+    model.set_mesh(meshes["tp2"])
+    try:
+        reset_launch_counts()
+        got = words_of(model.transcribe(jfk, **words))
+        torch.cuda.synchronize()
+        add_counts(counts, launch_counts())
+    finally:
+        model.set_mesh(None)
+
+    part("words")
+    tp = meshes["tp2"].get_group("tp")
+    out["gloo_allreduce_ms_1x1280"] = allreduce_ms(tp, (1, 1, 1280))
+    out["gloo_allreduce_ms_2x1500x1280"] = allreduce_ms(tp, (2, 1500, 1280), reps=5)
+
+    def timed_words(ws):
+        return [(w["word"], w["start"], w["end"]) for w in ws]
+
+    if not got or timed_words(got) != timed_words(want):
+        raise AssertionError("(b) tp2 word timestamps differ from the plain model's")
+    out.update(
+        words=len(got), launches=counts, seconds=seconds,
+        word_probability_max_abs_diff=max(abs(a["probability"] - b["probability"]) for a, b in zip(got, want)),
+    )  # fmt: skip
+    return out
+
+
+def parallel_phase(audio, jfk, card):
+    """The mesh on the card (parallel/): (a) a world of one over NCCL,
+    (b) two ranks sharing the card over gloo (mesh_world1, mesh_world2),
+    each spawned from here after the kernels are built. A failed rank
+    fails the phase. Returns the launches of the mesh runs, summed over
+    the ranks."""
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts = {}
+    t = time.perf_counter()
+    (a,) = spawn(mesh_world1, 1, audio, device_type="cuda", timeout=600)
+    add_counts(counts, a["launches"])
+    log(json.dumps({"phase": "parallel_world1_nccl", **a, "seconds": time.perf_counter() - t, "card": card}))
+    t = time.perf_counter()
+    b = spawn(mesh_world2, 2, audio, jfk, device_type="cuda", backend="gloo", timeout=600)
+    for rank, r in enumerate(b):
+        add_counts(counts, r["launches"])
+        log(json.dumps({"phase": "parallel_world2_gloo", "rank": rank, **r, "card": card}))
+    log(json.dumps({"phase": "parallel", "seconds_world2": time.perf_counter() - t, "launches": counts}))
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the mesh runs launched {missing} no time: {counts}")
+    return counts
+
+
 def main():
+    start = time.perf_counter()
+
+    def clock(after):
+        # the smoke's elapsed seconds after each part, against its time limit
+        log(json.dumps({"phase": "clock", "after": after, "seconds": time.perf_counter() - start}))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu_name = torch.cuda.get_device_name(0)
@@ -3138,6 +3418,7 @@ def main():
         "greedy_argmax": check_greedy(), "greedy_argmax_rows": check_greedy_rows(),
         "beam_update": check_beam(), "dtw_trace": check_dtw(), "median_filter": check_median(),
     }  # fmt: skip
+    clock("kernels")
     log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
     log(json.dumps({"phase": "f32_products", **f32_products()}))
     for name, r in kernels.items():
@@ -3147,7 +3428,9 @@ def main():
                             "which computes none of the filters; no single PyTorch call "
                             "computes the DTW trace"}))  # fmt: skip
 
+    clock("f32_products")
     log(json.dumps({"phase": "card_vs_cpu", **card_vs_cpu()}))
+    clock("card_vs_cpu")
 
     dims = MODEL_DIMS["turbo"]
     torch.cuda.reset_peak_memory_stats()
@@ -3177,9 +3460,12 @@ def main():
             launches[k] = launches.get(k, 0) + v
         log(json.dumps({"phase": "main_path", "run": name, **stats, "launches": counts,
                         "card": card}))  # fmt: skip
+    clock("main_path")
     for k, v in batch_phase(model, audio, card).items():
         launches[k] = launches.get(k, 0) + v
+    clock("batch")
     log(json.dumps({"phase": "cli", **cli_phase()}))
+    clock("cli")
 
     log(json.dumps({"phase": "bf16_rows", **bf16_rows(model, audio), "card": card}))
     serving = {}
@@ -3198,6 +3484,7 @@ def main():
     torch.cuda.empty_cache()
     add_serving(servers_phase(model, jfk, card))
     log(json.dumps({"phase": "serving", "seconds": time.perf_counter() - t, "launches": serving}))
+    clock("serving")
     if batcher_counts["beam_update"] == 0 or any(
         n == 0 for k, n in serving.items() if k != "greedy_argmax_rows"
     ):
@@ -3211,10 +3498,15 @@ def main():
     del f32_model
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "int8_spec", "seconds": time.perf_counter() - t}))
+    clock("int8_spec")
     log(json.dumps({"phase": "card_vs_cpu_serving", **card_vs_cpu_serving()}))
+    clock("card_vs_cpu_serving")
     log(json.dumps({"phase": "memory", "max_memory_allocated": torch.cuda.max_memory_allocated()}))
     for k, v in train_phase(model, jfk, card).items():
         launches[k] = launches.get(k, 0) + v
+    clock("train")
+    add_counts(launches, parallel_phase(audio, jfk, card))
+    clock("parallel")
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
     for beam_size in (None, 5):
         profile = decode_loop_profile(model, audio, beam_size)
@@ -3222,7 +3514,9 @@ def main():
         log(json.dumps({"phase": "loop_profile", **profile, "card": card}))
         log(json.dumps({"phase": "int8_vs_bf16", **int8_profile(model, audio, beam_size, tokens),
                         "card": card}))  # fmt: skip
+    clock("loop_profiles")
     log(json.dumps({"phase": "train_profile", **train_profile(model), "card": card}))
+    clock("train_profile")
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),

@@ -152,3 +152,62 @@ def test_main_on_cpu(tmp_path, synth_checkpoint, jfk_flac_path, capsys, monkeypa
     assert "draft checkpoint at" in capsys.readouterr().out
     meta = json.loads((out / "dims.json").read_text())
     assert meta["step"] == 1 and meta["n_text_state"] == 64 and meta["n_vocab"] == 51865
+
+
+STUDENT_TP = dict(STUDENT, n_audio_head=2, n_text_head=2)  # heads tp = 2 divides
+TEXTS4 = TEXTS + ["ask not", "what you can do for your country"]
+
+
+def _distill_world(ckpt, records, out_dir):
+    """run_distill on a (dp=2, tp=2) world: this rank's history, log lines
+    and the gathered student of the last checkpoint."""
+    from whisper_tpu_torch.parallel import make_mesh, sharding
+
+    model = whisper_tpu_torch.load_model(ckpt, device="cpu", compute_dtype=torch.float32)
+    mesh = make_mesh(dp=2, tp=2, device_type="cpu")
+    captured, lines = {}, []
+    gather = sharding.gather_params
+
+    def capture(params, mesh):
+        tree = gather(params, mesh)
+        captured["tree"] = {k: v.numpy().copy() for k, v in flatten_tree(tree)}
+        return tree
+
+    sharding.gather_params = capture
+    history = distill.run_distill(
+        model, ModelDimensions(**STUDENT_TP), records, steps=2, batch_size=4, out_dir=out_dir,
+        mesh=mesh, max_tokens=48, log=lines.append,
+    )  # fmt: skip
+    return history, lines, captured["tree"]
+
+
+def test_distill_sharded_matches_jax(tpu_model, mesh8, synth_checkpoint, tmp_path, jfk_flac_path):
+    """Batch 4 of records with different token counts on (dp=2, tp=2), the
+    f32 teacher split over tp: the CE and KL means over the global batch,
+    the history equal on every rank and within rtol 1e-4 of the JAX
+    package's single-device and sharded histories; rank 0's checkpoint is
+    the gathered student."""
+    from whisper_tpu_torch.checkpoint import load_checkpoint
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    records = [{"audio": jfk_flac_path, "text": t} for t in TEXTS4]
+    kw = dict(steps=2, batch_size=4, max_tokens=48, log=lambda *_: None)
+    single = jax_distill.run_distill(tpu_model, JaxDims(**STUDENT_TP), records, out_dir=str(tmp_path / "j1"), **kw)
+    sharded = jax_distill.run_distill(
+        tpu_model, JaxDims(**STUDENT_TP), records, out_dir=str(tmp_path / "j2"), mesh=mesh8, **kw
+    )
+    out = str(tmp_path / "p")
+    ranks = spawn(_distill_world, 4, synth_checkpoint, records, out, device_type="cpu")
+    history, lines, tree = ranks[0]
+    for h, ln, t in ranks[1:]:
+        assert h == history and ln == lines
+        assert all(np.array_equal(t[k], v) for k, v in tree.items())
+    np.testing.assert_allclose(history, single, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(history, sharded, rtol=1e-4, atol=1e-5)
+    assert len(lines) == 2 and all(" ce " in ln and " kl " in ln for ln in lines)
+    params, dims, step = load_checkpoint(out)
+    assert step == 2 and dims.n_text_head == 2 and dims.n_text_state == 64
+    flat = dict(flatten_tree(params))
+    assert flat.keys() == tree.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(v.numpy(), tree[k], err_msg=k)

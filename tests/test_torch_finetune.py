@@ -386,3 +386,73 @@ def test_matmul_f32_gradient_on_card(cuda_device, sa, sb):
         assert x.dtype == torch.bfloat16
         ulp = torch.finfo(torch.bfloat16).eps * w.float().abs().clamp(min=2**-126)
         assert ((x.float() - w.float()).abs() <= ulp).all()
+
+
+def _capture_gathered_params(captured):
+    """Record the gathered tree each checkpoint write reads (on this rank)."""
+    from whisper_tpu_torch.parallel import sharding
+
+    gather = sharding.gather_params
+
+    def capture(params, mesh):
+        tree = gather(params, mesh)
+        captured["tree"] = {k: v.numpy().copy() for k, v in flatten_tree(tree)}
+        return tree
+
+    sharding.gather_params = capture
+
+
+def _finetune_world(ckpt, records, out_dir):
+    """run_finetune on a (dp=2, tp=2) world, eval every step: this rank's
+    history, log lines and the gathered tree of the last checkpoint."""
+    from whisper_tpu_torch.parallel import make_mesh
+
+    model = whisper_tpu_torch.load_model(ckpt, device="cpu", compute_dtype=torch.float32)
+    mesh = make_mesh(dp=2, tp=2, device_type="cpu")
+    captured, lines = {}, []
+    _capture_gathered_params(captured)
+    history = finetune.run_finetune(
+        model, records, steps=2, batch_size=4, out_dir=out_dir, mesh=mesh, max_tokens=48,
+        eval_manifest=records, eval_every=1, log=lines.append,
+    )  # fmt: skip
+    return history, lines, captured["tree"]
+
+
+def test_finetune_sharded_matches_jax(tpu_model, mesh8, synth_checkpoint, tmp_path, jfk_flac_path):
+    """Batch 4 of records with different token counts on (dp=2, tp=2): the
+    loss is the global masked mean (an average of the dp ranks' means would
+    differ), equal on every rank and within rtol 1e-4 of the JAX package's
+    single-device and sharded histories; every rank logs the same
+    held-out loss; rank 0's checkpoint is the gathered tree."""
+    from whisper_tpu_torch.checkpoint import load_checkpoint
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    records = _records(jfk_flac_path, 4)
+    kw = dict(steps=2, batch_size=4, max_tokens=48)
+    jlines = []
+    single = jax_finetune.run_finetune(
+        tpu_model, records, out_dir=str(tmp_path / "j1"), eval_manifest=records, eval_every=1,
+        log=jlines.append, **kw,
+    )  # fmt: skip
+    sharded = jax_finetune.run_finetune(
+        tpu_model, records, out_dir=str(tmp_path / "j2"), mesh=mesh8, log=lambda *_: None, **kw
+    )
+    out = str(tmp_path / "p")
+    ranks = spawn(_finetune_world, 4, synth_checkpoint, records, out, device_type="cpu")
+    history, lines, tree = ranks[0]
+    for h, ln, t in ranks[1:]:
+        assert h == history and ln == lines
+        assert all(np.array_equal(t[k], v) for k, v in tree.items())
+    np.testing.assert_allclose(history, single, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(history, sharded, rtol=1e-4, atol=1e-5)
+    evals = [float(ln.rsplit(" ", 1)[-1]) for ln in lines if "eval_loss" in ln]
+    jevals = [float(ln.rsplit(" ", 1)[-1]) for ln in jlines if "eval_loss" in ln]
+    assert len(evals) == 2
+    np.testing.assert_allclose(evals, jevals, rtol=1e-3)  # printed to four decimals
+    assert sorted(os.listdir(out)) == ["dims.json", "state_2.pt"]
+    params, dims, step = load_checkpoint(out)
+    assert step == 2 and dims.n_text_head == 2
+    flat = dict(flatten_tree(params))
+    assert flat.keys() == tree.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(v.numpy(), tree[k], err_msg=k)

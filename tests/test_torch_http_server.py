@@ -246,6 +246,20 @@ def test_counters_under_concurrent_errors(http_server):
     assert srv.http_stats["http_errors_total"] - before["http_errors_total"] == 48
 
 
+def test_refused_posts_with_bodies_read_their_replies(http_server):
+    """200 posts in turn, each with a body the server refuses before
+    reading it (a 404 route, a bad stream encoding): every client reads its
+    reply, none sees the reset that closing a socket with unread bytes sends."""
+    url, srv = http_server
+    before = dict(srv.http_stats)
+    body = b"x" * 32768  # past the handler's 8 KiB read buffer: the drain reads the socket
+    for i in range(200):
+        path = "/v1/other" if i % 2 else "/v1/audio/transcriptions/stream?encoding=mp3"
+        status, _, resp = _post(f"{url}{path}", body, "application/octet-stream")
+        assert status == (404 if i % 2 else 400) and json.loads(resp)["error"]["message"], i
+    assert srv.http_stats["http_errors_total"] - before["http_errors_total"] == 200
+
+
 def test_rejected_submits_do_not_count_as_admitted(http_server):
     url, srv = http_server
     before = int(srv.batcher.stats["requests_submitted"])

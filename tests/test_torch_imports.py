@@ -38,7 +38,11 @@ def test_import_without_jax():
         "import whisper_tpu_torch.server, whisper_tpu_torch.http_server, whisper_tpu_torch.version\n"
         "import whisper_tpu_torch.quant, whisper_tpu_torch.speculative\n"
         "import whisper_tpu_torch.checkpoint, whisper_tpu_torch.finetune, whisper_tpu_torch.distill\n"
-        "import whisper_tpu_torch.parallel.train\n"
+        "import whisper_tpu_torch.parallel.train, whisper_tpu_torch.comm\n"
+        "import whisper_tpu_torch.parallel.mesh, whisper_tpu_torch.parallel.sharding\n"
+        "import whisper_tpu_torch.parallel.serve, whisper_tpu_torch.parallel.launch\n"
+        "import whisper_tpu_torch.parallel.sequence, whisper_tpu_torch.parallel.pipeline\n"
+        "from whisper_tpu_torch.parallel import DataParallelEngine, make_mesh, pp_encode, sp_encode\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -160,3 +164,40 @@ def test_training_mains_default_to_cuda(tmp_path, synth_checkpoint, module):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([str(manifest), "--model", synth_checkpoint, "--out", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
+
+
+def test_make_mesh_defaults_to_cuda_and_nccl():
+    """make_mesh runs on CUDA with NCCL unless told otherwise: without a
+    card that is an error, and nothing falls back to gloo or to the CPU
+    (no process group is initialised)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import inspect
+
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import make_mesh
+
+    params = inspect.signature(make_mesh).parameters
+    assert params["device_type"].default == "cuda" and params["backend"].default is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    assert not dist.is_initialized()
+
+
+def test_spawn_defaults_to_cuda():
+    """parallel.launch.spawn starts its ranks on CUDA unless told
+    otherwise: without a card it raises before starting a process, and
+    nothing falls back to gloo on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import inspect
+    import multiprocessing
+
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    params = inspect.signature(spawn).parameters
+    assert params["device_type"].default == "cuda" and params["backend"].default is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn(os.getpid, 2)
+    assert not multiprocessing.active_children()

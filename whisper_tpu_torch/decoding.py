@@ -597,7 +597,9 @@ class DecodingTask:
 
     def _engines(self):
         """The model's cached engine for its weights mode, and its cached
-        speculative engine for its draft when this run speculates."""
+        speculative engine for its draft when this run speculates; with a
+        mesh (model.set_mesh) both are the sharded engines of
+        parallel/serve.py."""
         from .engine import model_engine
         from .speculative import SpeculativeEngine
 
@@ -606,11 +608,19 @@ class DecodingTask:
         weights = engine.weights
         if self._draft_ckv is None:
             return engine, None
-        key = (id(model.draft_model), model.draft_k, weights)
+        mesh = model.mesh
+        key = (id(model.draft_model), model.draft_k, weights, id(mesh) if mesh is not None else None)
         if model._spec_engine is None or model._spec_engine_key != key:
-            model._spec_engine = SpeculativeEngine(
-                model, model.draft_model, k=model.draft_k, weights=weights
-            )
+            if mesh is None:
+                model._spec_engine = SpeculativeEngine(
+                    model, model.draft_model, k=model.draft_k, weights=weights
+                )
+            else:
+                from .parallel.serve import DataParallelSpeculativeEngine
+
+                model._spec_engine = DataParallelSpeculativeEngine(
+                    model, model.draft_model, mesh, k=model.draft_k, weights=weights
+                )
             model._spec_engine_key = key
         return engine, model._spec_engine
 

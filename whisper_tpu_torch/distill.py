@@ -13,12 +13,18 @@ Loss, pad-masked, next-token:
 
 The student starts from `init_random_params_host(draft dims, seed)`, the
 JAX package's numpy initialisation, and trains in float32; the teacher's
-forward runs under no_grad on a float32 copy of the target's tree.
+forward runs under no_grad on a float32 copy of the target's tree. On a
+(dp, tp) mesh both trees are split over tp (the teacher replicated over
+dp), each rank takes its dp rows, and the CE and KL means are normalised
+over the global batch (parallel/train.py); rank 0 writes the gathered
+student.
 
 Usage:
 
     python -m whisper_tpu_torch.distill manifest.jsonl --model turbo \\
         --draft tiny --steps 2000 --batch 8 --out ./draft_ckpt [--device cuda]
+    torchrun --nproc_per_node 2 -m whisper_tpu_torch.distill manifest.jsonl \\
+        --model turbo --draft tiny --batch 8 --dp 2
     # then:
     model = whisper_tpu_torch.load_model("turbo")
     model.set_draft_model(whisper_tpu_torch.load_model("./draft_ckpt"))
@@ -77,37 +83,41 @@ def distill_loss(
     alpha: float,
     tau: float,
     pad_id: int = PAD_ID,
+    tp=None,
+    dp=None,
 ):
     """Pad-masked next-token CE + temperature-tau KL to the frozen teacher.
     Both models read the same mel (draft_dims pins n_mels equal); the
     teacher's forward runs under no_grad. Returns (loss, {"ce", "kl"}), the
-    parts detached."""
+    parts detached. With process groups both trees are this rank's tp
+    shards, the batch its dp rows, and the means its rows' share of the
+    global ones."""
     from .models import graphs
+    from .parallel.train import masked_mean
 
     mel, tokens = batch["mel"], batch["tokens"].long()
     targets = tokens[:, 1:]
     inputs = tokens[:, :-1].clamp(min=0)
 
     def forward(params, n_audio_head, n_text_head):
-        xa = graphs.encode(params["encoder"], mel, n_head=n_audio_head)
-        ck, cv = graphs.cross_kv(params["decoder"], xa, n_head=n_text_head)
-        return graphs.decoder_forward(params["decoder"], inputs, ck, cv, n_head=n_text_head)
+        xa = graphs.encode(params["encoder"], mel, n_head=n_audio_head, tp=tp)
+        ck, cv = graphs.cross_kv(params["decoder"], xa, n_head=n_text_head, tp=tp)
+        return graphs.decoder_forward(params["decoder"], inputs, ck, cv, n_head=n_text_head, tp=tp)
 
     z_s = forward(student_params, *heads_s)
     with torch.no_grad():
         z_t = forward(teacher_params, *heads_t)
 
     mask = (targets != pad_id).float()
-    denom = mask.sum().clamp(min=1.0)
 
     logp_s = torch.log_softmax(z_s, dim=-1)
     nll = -logp_s.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
-    ce = (nll * mask).sum() / denom
+    ce = masked_mean(nll, mask, dp)
 
     logp_st = torch.log_softmax(z_s / tau, dim=-1)
     logp_tt = torch.log_softmax(z_t / tau, dim=-1)
     kl_tok = (logp_tt.exp() * (logp_tt - logp_st)).sum(dim=-1)
-    kl = (kl_tok * mask).sum() / denom
+    kl = masked_mean(kl_tok, mask, dp)
 
     loss = (1.0 - alpha) * ce + alpha * (tau * tau) * kl
     return loss, {"ce": ce.detach(), "kl": kl.detach()}
@@ -116,30 +126,40 @@ def distill_loss(
 def make_distill_step(
     dims_t: ModelDimensions,
     dims_s: ModelDimensions,
+    mesh=None,
     learning_rate: float = 1e-4,
     weight_decay: float = 0.01,
     alpha: float = 0.5,
     tau: float = 2.0,
 ):
     """Returns (init_state, step). init_state(student_params) ->
-    DistillState; step(state, teacher_params, batch) -> (state, (loss,
-    aux)), the batch moved to the student's device, the teacher's tree read
-    only."""
-    from .parallel.train import device_batch, init_train_state, optimizer_step
+    DistillState of this rank's shard; step(state, teacher_params, batch)
+    -> (state, (loss, aux)), the batch (whole on every rank) moved to the
+    student's device and split over dp, the teacher's tree (this rank's
+    shard on a mesh: parallel.sharding.shard_params) read only; the loss
+    and its parts the same on every rank."""
+    from .comm import all_reduce
+    from .parallel.sharding import shard_params
+    from .parallel.train import device_batch, init_train_state, mesh_groups, optimizer_step
 
     heads_s = (dims_s.n_audio_head, dims_s.n_text_head)
     heads_t = (dims_t.n_audio_head, dims_t.n_text_head)
+    dp, tp = mesh_groups(mesh, dims_t, dims_s)
 
     def init_state(student_params) -> DistillState:
+        if mesh is not None:
+            student_params = shard_params(student_params, mesh)
         return DistillState(*init_train_state(student_params, learning_rate, weight_decay))
 
     def step(state: DistillState, teacher_params, batch):
-        batch = device_batch(batch, state.params["decoder"]["tok_emb"].device)
+        batch = device_batch(batch, state.params["decoder"]["tok_emb"].device, dp)
         loss, aux = distill_loss(
             state.params, teacher_params, batch, heads_s=heads_s, heads_t=heads_t,
-            alpha=alpha, tau=tau,
+            alpha=alpha, tau=tau, tp=tp, dp=dp,
         )  # fmt: skip
-        return optimizer_step(state, loss), (loss.detach(), aux)
+        state = optimizer_step(state, loss, dp)
+        loss, ce, kl = (all_reduce(v.detach().clone(), dp) for v in (loss, aux["ce"], aux["kl"]))
+        return state, (loss, {"ce": ce, "kl": kl})
 
     return init_state, step
 
@@ -152,6 +172,7 @@ def run_distill(
     steps: int,
     batch_size: int,
     out_dir: str,
+    mesh=None,
     learning_rate: float = 1e-4,
     weight_decay: float = 0.01,
     alpha: float = 0.5,
@@ -165,9 +186,11 @@ def run_distill(
     """Distill `model` into a fresh `draft`-sized student over `manifest` on
     the model's device; writes a checkpoint directory that load_model()
     reads and set_draft_model() accepts. Returns the per-step total-loss
-    history."""
-    from .checkpoint import save_checkpoint
+    history. With a (dp, tp) mesh, every rank calls this with the same
+    arguments and gets the same history; the batch must split over dp."""
+    from .finetune import save_sharded_checkpoint
     from .models.params import init_random_params_host, map_tree
+    from .parallel.sharding import shard_params
 
     if steps < 1:
         # a zero-step run would still write a random-weights "draft"
@@ -182,12 +205,15 @@ def run_distill(
         manifest = pseudo_label(model, manifest, language=language)
 
     init_state, step = make_distill_step(
-        model.dims, dims_s,
+        model.dims, dims_s, mesh,
         learning_rate=learning_rate, weight_decay=weight_decay, alpha=alpha, tau=tau,
     )  # fmt: skip
     student = init_random_params_host(dims_s, seed=seed)
     state = init_state(map_tree(student, lambda _, v: v.to(model.device)))
+    # the read-only teacher: split over tp once (replicated over dp)
     teacher = map_tree(model.params, lambda _, v: v.float())
+    if mesh is not None:
+        teacher = shard_params(teacher, mesh)
 
     it = batches(
         manifest,
@@ -210,8 +236,8 @@ def run_distill(
             f"ce {float(aux['ce']):.4f}  kl {float(aux['kl']):.4f}"
         )
         if checkpoint_every and i % checkpoint_every == 0 and i < steps:
-            save_checkpoint(out_dir, state.params, dims_s, i)
-    save_checkpoint(out_dir, state.params, dims_s, steps)
+            save_sharded_checkpoint(out_dir, state.params, dims_s, i, mesh)
+    save_sharded_checkpoint(out_dir, state.params, dims_s, steps, mesh)
     return history
 
 
@@ -238,10 +264,14 @@ def main(argv=None):
     parser.add_argument("--checkpoint_every", type=int, default=0)
     parser.add_argument("--language", default="en")
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    parser.add_argument("--dp", type=int, default=None, help="data-parallel ranks (torchrun)")
+    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (torchrun)")
     args = parser.parse_args(argv)
 
     from . import load_model
+    from .finetune import init_mesh
 
+    mesh = init_mesh(args.dp, args.tp, args.device)
     model = load_model(args.model, device=args.device)
     history = run_distill(
         model,
@@ -250,6 +280,7 @@ def main(argv=None):
         steps=args.steps,
         batch_size=args.batch,
         out_dir=args.out,
+        mesh=mesh,
         learning_rate=args.lr,
         weight_decay=args.weight_decay,
         alpha=args.alpha,

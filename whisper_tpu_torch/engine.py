@@ -17,7 +17,8 @@ synchronization per token).
 the engine quantizes the model's decoder once, on first use, and keeps the
 quantized tree; each run quantizes the window's cross-K/V before the
 prefill. The model's own parameters are left as they are. `model_engine`
-gives a model's cached engine, one quantized tree per model and mode.
+gives a model's cached engine, one quantized tree per model and mode: a
+parallel.serve.DataParallelEngine when the model has a mesh (set_mesh).
 """
 
 import collections
@@ -37,6 +38,11 @@ HISTORY_RUNS = 1024  # runs kept in FusedEngine.history; the oldest drop out
 class FusedEngine:
     """Runs decode windows for one model; keeps the penalty vectors of the
     last suppression sets on the device."""
+
+    # the process groups the graphs reduce over (parallel/serve.py sets
+    # them): tensor parallel over heads, the frame split of the cross-K/V
+    _tp = None
+    _sp = None
 
     def __init__(self, model, weights: str = ""):
         self.model = model
@@ -63,6 +69,15 @@ class FusedEngine:
             dec = self.model.params["decoder"]
             self._dec_params = quant.quantize_decoder(dec) if self.weights == "int8" else dec
         return self._dec_params
+
+    def _all_done(self, done) -> bool:
+        """Whether the loop may stop: every row is done (the per-step host
+        read)."""
+        return bool(done.all())
+
+    def _draw(self, probs, gen):
+        """One sampled token id per row of `probs` (B, V)."""
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     @torch.inference_mode()
     def run(
@@ -128,8 +143,9 @@ class FusedEngine:
 
         # ---- prefill, once per audio ----
         hidden, kv = graphs.prefill(
-            dec, first[:, :n_initial], n_initial, ck, cv, n_head=model.dims.n_text_head
-        )
+            dec, first[:, :n_initial], n_initial, ck, cv, n_head=model.dims.n_text_head,
+            tp=self._tp, sp=self._sp,
+        )  # fmt: skip
         cache = model.kv_to_cache_grouped(kv, G)
         logits = graphs.hidden_to_logits(dec, hidden[:, n_initial - 1])  # (A, V)
         sot_logits = graphs.hidden_to_logits(dec, hidden[:, sot_index])
@@ -154,7 +170,7 @@ class FusedEngine:
             if step > 0:
                 logits, cache = graphs.decode_step(
                     dec, tokens[:, n_tokens - 1], n_tokens - 1, cache, src, ck, cv,
-                    n_head=model.dims.n_text_head,
+                    n_head=model.dims.n_text_head, tp=self._tp, sp=self._sp,
                 )  # fmt: skip
             if beam_search:
                 tokens, src, sum_lp = beam_update(
@@ -173,7 +189,7 @@ class FusedEngine:
                         logits, tokens, n_tokens, n_initial, suppress_pen, begin_pen, **filt
                     )
                     probs = torch.softmax(filtered / max(temperature, 1e-6), dim=-1)
-                    next_tok = torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+                    next_tok = self._draw(probs, gen).to(torch.int32)
                     lps = torch.log_softmax(filtered, dim=-1)
                     current = lps.gather(1, next_tok[:, None].long())[:, 0]
                 # GreedyDecoder.update tail: rows that already ended stay at EOT
@@ -184,7 +200,7 @@ class FusedEngine:
                 done = next_tok == eot
             n_tokens += 1
             step += 1
-            completed = bool(done.all())  # the per-step host read
+            completed = self._all_done(done)
             if completed or step >= sample_len or n_tokens >= n_ctx:
                 break
 
@@ -205,9 +221,17 @@ class FusedEngine:
 def model_engine(model, weights: str = "") -> FusedEngine:
     """The model's cached engine for `weights`, built (and cached on the
     model in place of one of another mode) when it has none: each model
-    holds one quantized decoder tree and one set of penalty vectors."""
+    holds one quantized decoder tree and one set of penalty vectors. A
+    model with a mesh (set_mesh) gets a DataParallelEngine on it."""
     weights = quant.check_weights_mode(weights)
+    mesh = getattr(model, "mesh", None)
     engine = getattr(model, "_fused_engine", None)
-    if engine is None or engine.weights != weights:
-        engine = model._fused_engine = FusedEngine(model, weights=weights)
+    if engine is None or engine.weights != weights or getattr(engine, "mesh", None) is not mesh:
+        if mesh is None:
+            engine = FusedEngine(model, weights=weights)
+        else:
+            from .parallel.serve import DataParallelEngine
+
+            engine = DataParallelEngine(model, mesh, weights=weights)
+        model._fused_engine = engine
     return engine

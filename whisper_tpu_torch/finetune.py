@@ -1,15 +1,19 @@
 """Fine-tuning: a manifest of (audio, text) pairs -> an updated checkpoint
-(the counterpart of whisper_tpu/finetune.py on one device).
+(the counterpart of whisper_tpu/finetune.py).
 
 The data pipeline makes log-mel windows and teacher-forced token rows at
 fixed shapes; the loop takes one AdamW step a batch (parallel/train.py),
 logs the loss, optionally a held-out loss, and writes checkpoints
-(checkpoint.py) that `load_model(out_dir)` reads.
+(checkpoint.py) that `load_model(out_dir)` reads. Pass a (dp, tp) mesh
+(parallel/mesh.py) and the same loop trains SPMD on every rank: the batch
+split over dp, the tree over tp; rank 0 writes the gathered tree.
 
 Usage:
 
     python -m whisper_tpu_torch.finetune manifest.jsonl --model tiny \\
         --steps 500 --batch 8 --out ./ft_ckpt [--device cuda]
+    torchrun --nproc_per_node 4 -m whisper_tpu_torch.finetune manifest.jsonl \\
+        --model tiny --batch 8 --dp 2 --tp 2
 
 Manifest: JSON lines of {"audio": "/path.flac", "text": "reference text"}.
 """
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from .audio import N_FRAMES, log_mel_spectrogram, pad_or_trim
+from .comm import all_reduce
 from .tokenizer import get_tokenizer
 
 # PAD_ID, load_manifest, make_example and batches: copied from
@@ -131,6 +136,7 @@ def run_finetune(
     steps: int,
     batch_size: int,
     out_dir: str,
+    mesh=None,
     learning_rate: float = 1e-5,
     weight_decay: float = 0.01,
     max_tokens: int = 128,
@@ -146,14 +152,15 @@ def run_finetune(
     `out_dir`. The trained tree is a copy of `model.params` in the model's
     dtypes: the model itself is left as it was. With `eval_manifest` (and
     `eval_every`), logs the teacher-forced loss of one fixed held-out
-    batch."""
-    from .checkpoint import save_checkpoint
-    from .parallel.train import device_batch, loss_fn, make_train_step
+    batch. With a mesh, every rank calls this with the same arguments and
+    gets the same history; the batch must split over dp."""
+    from .parallel.train import device_batch, loss_fn, make_train_step, mesh_groups
 
     tokenizer = model_tokenizer(model, language)
     init_state, train_step = make_train_step(
-        model.dims, learning_rate=learning_rate, weight_decay=weight_decay
+        model.dims, mesh, learning_rate=learning_rate, weight_decay=weight_decay
     )
+    dp, tp = mesh_groups(mesh, model.dims)
     state = init_state(model.params)
     it = batches(
         manifest,
@@ -178,6 +185,7 @@ def run_finetune(
                 )
             ),
             model.device,
+            dp,
         )
 
     history: List[float] = []
@@ -190,17 +198,42 @@ def run_finetune(
         log(f"step {step}/{steps}  loss {loss:.4f}")
         if eval_batch is not None and step % eval_every == 0:
             with torch.no_grad():
-                ev = float(
-                    loss_fn(
-                        state.params, eval_batch, n_audio_head=model.dims.n_audio_head,
-                        n_text_head=model.dims.n_text_head,
-                    )
+                ev = loss_fn(
+                    state.params, eval_batch, n_audio_head=model.dims.n_audio_head,
+                    n_text_head=model.dims.n_text_head, tp=tp, dp=dp,
                 )  # fmt: skip
-            log(f"step {step}/{steps}  eval_loss {ev:.4f}")
+            log(f"step {step}/{steps}  eval_loss {float(all_reduce(ev, dp)):.4f}")
         if checkpoint_every and step % checkpoint_every == 0 and step < steps:
-            save_checkpoint(out_dir, state.params, model.dims, step)
-    save_checkpoint(out_dir, state.params, model.dims, steps)
+            save_sharded_checkpoint(out_dir, state.params, model.dims, step, mesh)
+    save_sharded_checkpoint(out_dir, state.params, model.dims, steps, mesh)
     return history
+
+
+def save_sharded_checkpoint(out_dir: str, params, dims, step: int, mesh=None):
+    """checkpoint.save_checkpoint of a trained tree: on a mesh, every rank
+    gathers the whole tree over tp and rank 0 writes it."""
+    import torch.distributed as dist
+
+    from .checkpoint import save_checkpoint
+
+    if mesh is not None:
+        from .parallel.sharding import gather_params
+
+        params = gather_params(params, mesh)
+    if mesh is None or dist.get_rank() == 0:
+        save_checkpoint(out_dir, params, dims, step)
+
+
+def init_mesh(dp: Optional[int], tp: int, device: str):
+    """The CLIs' mesh from --dp/--tp: None when neither is given; else the
+    mesh over the world, the default group initialised from torchrun's
+    environment if it is not yet (which selects the rank's card before the
+    model is loaded)."""
+    if dp is None and tp == 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(dp=dp, tp=tp, device_type=torch.device(device).type)
 
 
 def main(argv=None):
@@ -220,10 +253,13 @@ def main(argv=None):
     parser.add_argument("--eval_every", type=int, default=0)
     parser.add_argument("--language", default="en")
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    parser.add_argument("--dp", type=int, default=None, help="data-parallel ranks (torchrun)")
+    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (torchrun)")
     args = parser.parse_args(argv)
 
     from . import load_model
 
+    mesh = init_mesh(args.dp, args.tp, args.device)
     model = load_model(args.model, device=args.device)
     history = run_finetune(
         model,
@@ -231,6 +267,7 @@ def main(argv=None):
         steps=args.steps,
         batch_size=args.batch,
         out_dir=args.out,
+        mesh=mesh,
         learning_rate=args.lr,
         weight_decay=args.weight_decay,
         max_tokens=args.max_tokens,

@@ -55,6 +55,8 @@ import numpy as np
 from .server import _STREAM_SESSION_KEYS, BatcherServer, Session, _json_line, serve_main
 
 MAX_UPLOAD_BYTES = 512 << 20  # ~8.7 h of 16 kHz s16 mono
+# a refused request's body up to this size is read before the reply
+DRAIN_BYTES = 64 << 10
 
 
 class _HTTPStream(Session):
@@ -149,6 +151,15 @@ def _stream_options(params: dict) -> dict:
     return opts
 
 
+class _ThreadingServer(ThreadingHTTPServer):
+    """A thread per connection, with a listen backlog of 128: at the
+    socketserver default of 5, a burst of clients overflows the accept
+    queue and some of them are reset before any reply."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
 class TranscriptionHTTPServer(BatcherServer):
     def __init__(
         self,
@@ -173,8 +184,7 @@ class TranscriptionHTTPServer(BatcherServer):
         self._stats_lock = threading.Lock()
         self._upload_sem = threading.BoundedSemaphore(max_uploads)
         self._httpd_thread: Optional[threading.Thread] = None
-        self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
-        self._httpd.daemon_threads = True
+        self._httpd = _ThreadingServer((host, port), self._handler_class())
         self.host, self.port = self._httpd.server_address[:2]
 
     @property
@@ -209,8 +219,18 @@ class TranscriptionHTTPServer(BatcherServer):
             def _fail_before_body_read(self, status: int, message: str):
                 """An error before the body was read closes the connection:
                 on keep-alive the unread bytes would be parsed as the next
-                request line."""
+                request line. A Content-Length body up to DRAIN_BYTES is
+                read and dropped first: closing a socket with unread bytes
+                makes the kernel send a reset, which can reach the client
+                before the reply. A larger or chunked body closes unread."""
                 self.close_connection = True
+                chunked = self.headers.get("Transfer-Encoding", "").lower() == "chunked"
+                try:
+                    length = int(self.headers.get("Content-Length", "0") or 0)
+                except ValueError:
+                    length = 0
+                if not chunked and 0 < length <= DRAIN_BYTES:
+                    self.rfile.read(length)
                 self._send_error_openai(status, message)
 
             def do_GET(self):

@@ -30,9 +30,11 @@ exactly as before.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.median import median_filter
+from ..comm import all_reduce, copy_to_group, gather_from_group, group_size, reduce_from_group
 
 CACHE_SLOTS = 448  # n_text_ctx; fixed self-attention cache length
 PREFILL_LEN = 256  # longest first pass (224 prompt + 3 sot + margin)
@@ -162,36 +164,54 @@ def _layers(tree):
     return [dict(zip(blocks, ws)) for ws in zip(*(v.unbind(0) for v in blocks.values()))]
 
 
-def encode(enc, mel, *, n_head):
-    """mel: (B, n_mels, 3000) -> (B, 1500, d) audio features."""
-    blocks = enc["blocks"]
-    dtype = blocks["attn_q_w"].dtype
-    x = mel.to(dtype)
+def encoder_stem(enc, mel):
+    """The conv stem and the position embedding: mel (B, n_mels, 2T) ->
+    (B, T, d) in the weights' dtype."""
+    x = mel.to(enc["blocks"]["attn_q_w"].dtype)
     x = F.gelu(F.conv1d(x, enc["conv1_w"], enc["conv1_b"], padding=1))
     x = F.gelu(F.conv1d(x, enc["conv2_w"], enc["conv2_b"], stride=2, padding=1))
-    x = x.transpose(1, 2) + enc["pos_emb"]  # (B, 1500, d)
+    return x.transpose(1, 2) + enc["pos_emb"]
 
-    for blk in _layers(enc):
-        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-7)
-        q = h @ blk["attn_q_w"] + blk["attn_q_b"]
-        k = h @ blk["attn_k_w"]
-        v = h @ blk["attn_v_w"] + blk["attn_v_b"]
-        x = x + _self_attention(q, k, v, None, n_head) @ blk["attn_o_w"] + blk["attn_o_b"]
-        h = layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"], 1e-7)
-        h = F.gelu(h @ blk["mlp_fc1_w"] + blk["mlp_fc1_b"])
-        x = x + h @ blk["mlp_fc2_w"] + blk["mlp_fc2_b"]
+
+def encoder_block(x, blk, n_head, tp=None, sp=None):
+    """One encoder layer on x (B, T, d) with `n_head` local heads. Under tp
+    the layer's weights are this rank's shards (parallel/sharding.py); under
+    sp x holds this rank's frames, and each layer all-gathers K and V over
+    the frames (parallel/sequence.py)."""
+    h = copy_to_group(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-7), tp)
+    q = h @ blk["attn_q_w"] + blk["attn_q_b"]
+    k = gather_from_group(h @ blk["attn_k_w"], sp, dim=1)
+    v = gather_from_group(h @ blk["attn_v_w"] + blk["attn_v_b"], sp, dim=1)
+    x = x + reduce_from_group(_self_attention(q, k, v, None, n_head) @ blk["attn_o_w"], tp) + blk["attn_o_b"]
+    h = copy_to_group(layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"], 1e-7), tp)
+    h = F.gelu(h @ blk["mlp_fc1_w"] + blk["mlp_fc1_b"])
+    return x + reduce_from_group(h @ blk["mlp_fc2_w"], tp) + blk["mlp_fc2_b"]
+
+
+def encoder_ln_post(enc, x):
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"], 1e-7)
 
 
-def cross_kv(dec, xa, *, n_head):
-    """xa: (B, 1500, d) -> (cK, cV) each (L, B, H, dh, 1500)."""
-    blocks = dec["blocks"]
-    xa = xa.to(blocks["cross_k_w"].dtype)
-    B, T, d = xa.shape
-    dh = d // n_head
+def encode(enc, mel, *, n_head, tp=None):
+    """mel: (B, n_mels, 3000) -> (B, 1500, d) audio features. `n_head` is
+    the model's; with a tp group the tree is this rank's shard and each
+    rank computes n_head / tp heads."""
+    x = encoder_stem(enc, mel)  # (B, 1500, d)
+    for blk in _layers(enc):
+        x = encoder_block(x, blk, n_head // group_size(tp), tp)
+    return encoder_ln_post(enc, x)
 
-    def split(y):  # (B, T, d) -> (B, H, dh, T)
-        return y.view(B, T, n_head, dh).permute(0, 2, 3, 1)
+
+def cross_kv(dec, xa, *, n_head, tp=None):
+    """xa: (B, 1500, d) -> (cK, cV) each (L, B, H, dh, 1500); with a tp
+    group, this rank's H / tp heads."""
+    blocks = dec["blocks"]
+    xa = copy_to_group(xa.to(blocks["cross_k_w"].dtype), tp)
+    B, T, _ = xa.shape
+    n_local = n_head // group_size(tp)
+
+    def split(y):  # (B, T, H * dh) -> (B, H, dh, T)
+        return y.view(B, T, n_local, y.shape[-1] // n_local).permute(0, 2, 3, 1)
 
     ck = torch.stack([split(xa @ w) for w in blocks["cross_k_w"].unbind(0)])
     vs = zip(blocks["cross_v_w"].unbind(0), blocks["cross_v_b"].unbind(0))
@@ -199,51 +219,75 @@ def cross_kv(dec, xa, *, n_head):
     return ck, cv
 
 
-def _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=False):
+def _sp_softmax(scores, sp):
+    """The softmax over frames split across the sp group: the row maxima
+    all-reduced with MAX, the exp sums with SUM; float32 like the scores."""
+    m = all_reduce(scores.amax(dim=-1, keepdim=True), sp, dist.ReduceOp.MAX)
+    e = torch.exp(scores - m)
+    return e / all_reduce(e.sum(dim=-1, keepdim=True), sp)
+
+
+def _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=False, tp=None, sp=None):
     """x: (B, T, d); ck_l/cv_l: (Bc, H, dh, Tk) with B % Bc == 0 — each
     audio's K/V serves the B // Bc query rows of its group — or int8
     (tensor, (Bc, H, Tk) scale) pairs: the K scale multiplies the scores,
     the V scale the softmax weights before the AV product. With
     return_scores, also the float32 scores before the softmax, (Bc, H,
-    g*T, Tk)."""
+    g*T, Tk). `n_head` is the local head count (H). Under sp the K/V hold
+    this rank's frames: the softmax is assembled over the group and the
+    partial AV products summed (no scores are returned then)."""
     B, T, d = x.shape
-    dh = d // n_head
     ck_a, ck_s = ck_l if isinstance(ck_l, tuple) else (ck_l, None)
     cv_a, cv_s = cv_l if isinstance(cv_l, tuple) else (cv_l, None)
     Bc = ck_a.shape[0]
     g = B // Bc
-    h = layer_norm(x, blk["cross_ln_g"], blk["cross_ln_b"], 1e-5)
-    q = (_dot(h, blk, "cross_q_w") + blk["cross_q_b"]) * (dh**-0.5)
+    h = copy_to_group(layer_norm(x, blk["cross_ln_g"], blk["cross_ln_b"], 1e-5), tp)
+    q = _dot(h, blk, "cross_q_w") + blk["cross_q_b"]
+    dh = q.shape[-1] // n_head
+    q = q * (dh**-0.5)
     # (Bc, H, g*T, dh): the group's query rows share one K/V
     qh = q.view(Bc, g * T, n_head, dh).transpose(1, 2)
     if ck_s is None:
         scores = matmul_f32(qh, ck_a)  # (Bc, H, g*T, Tk)
     else:
         scores = matmul_f32(qh, ck_a.to(qh.dtype)) * ck_s[:, :, None, :]
-    if cv_s is None:
+    if sp is not None:
+        w = _sp_softmax(scores.float(), sp)
+        w = (w if cv_s is None else w * cv_s[:, :, None, :]).to(x.dtype)
+        out = all_reduce(w @ cv_a.to(x.dtype).transpose(-1, -2), sp)
+    elif cv_s is None:
         w = _softmax_f32(scores, x.dtype)
         out = w @ cv_a.transpose(-1, -2)  # (Bc, H, g*T, dh)
     else:
         w = (torch.softmax(scores.float(), dim=-1) * cv_s[:, :, None, :]).to(x.dtype)
         out = w @ cv_a.to(x.dtype).transpose(-1, -2)
-    out = out.transpose(1, 2).reshape(B, T, d)
-    attn = _dot(out, blk, "cross_o_w") + blk["cross_o_b"]
+    out = out.transpose(1, 2).reshape(B, T, n_head * dh)
+    attn = reduce_from_group(_dot(out, blk, "cross_o_w"), tp) + blk["cross_o_b"]
     return (attn, scores) if return_scores else attn
 
 
-def _mlp(x, blk):
-    h = layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"], 1e-5)
+def _mlp(x, blk, tp=None):
+    h = copy_to_group(layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"], 1e-5), tp)
     h = F.gelu(_dot(h, blk, "mlp_fc1_w") + blk["mlp_fc1_b"])
-    return _dot(h, blk, "mlp_fc2_w") + blk["mlp_fc2_b"]
+    return reduce_from_group(_dot(h, blk, "mlp_fc2_w"), tp) + blk["mlp_fc2_b"]
 
 
-def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads, keep_kv=True):
+def _self_attn_out(x, blk, attn, tp):
+    """x plus the self-attention's out-projection of `attn` (B, T, d/tp):
+    a row-parallel product, reduced over tp before its bias."""
+    return x + reduce_from_group(_dot(attn, blk, "attn_o_w"), tp) + blk["attn_o_b"]
+
+
+def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads, keep_kv=True, tp=None, sp=None):
     """The prefill's layers; also collects the float32 cross-attention
-    scores (B, P, Tk) of each (layer, head) in alignment_heads. Without
-    keep_kv the K/V stack is None."""
+    scores (B, P, Tk) of each (layer, head) in alignment_heads (unsharded
+    only). Without keep_kv the K/V stack is None."""
+    if alignment_heads and (tp is not None or sp is not None):
+        raise ValueError("the alignment heads' scores need the whole cross-K/V: gather it first")
     blocks = dec["blocks"]
     B, P = tokens.shape
     dev = tokens.device
+    n_head //= group_size(tp)
 
     x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"][:P]
     pos = torch.arange(P, device=dev)
@@ -257,34 +301,36 @@ def _prefill(dec, tokens, n_valid, ck, cv, n_head, alignment_heads, keep_kv=True
 
     kv = []
     for l, blk in enumerate(_layers(dec)):
-        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        h = copy_to_group(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5), tp)
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
         k = _dot(h, blk, "attn_k_w")
         v = _dot(h, blk, "attn_v_w") + blk["attn_v_b"]
-        x = x + _dot(_self_attention(q, k, v, mask, n_head), blk, "attn_o_w") + blk["attn_o_b"]
+        x = _self_attn_out(x, blk, _self_attention(q, k, v, mask, n_head), tp)
         ck_l, cv_l = ckv_layer(ck, l), ckv_layer(cv, l)
         if l in wanted:
             attn, scores = _cross_attention(x, blk, ck_l, cv_l, n_head, return_scores=True)
             for head, i in wanted[l]:
                 align[i] = scores[:, head]
         else:
-            attn = _cross_attention(x, blk, ck_l, cv_l, n_head)
+            attn = _cross_attention(x, blk, ck_l, cv_l, n_head, tp=tp, sp=sp)
         x = x + attn
-        x = x + _mlp(x, blk)
+        x = x + _mlp(x, blk, tp)
         if keep_kv:
             kv.append(torch.stack([k, v]))
     kv = torch.stack(kv) if keep_kv else None
     return layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5), kv, align
 
 
-def prefill(dec, tokens, n_valid, ck, cv, *, n_head):
+def prefill(dec, tokens, n_valid, ck, cv, *, n_head, tp=None, sp=None):
     """First decoder pass over a token block.
 
     tokens: (B, P) int, contents beyond n_valid arbitrary; ck/cv: (L, B, H,
     dh, 1500). Returns (hidden (B, P, d) final-LN'd, kv (L, 2, B, P, d)).
     Key positions >= n_valid are masked for every query; query rows >=
-    n_valid are garbage that callers must not read."""
-    hidden, kv, _ = _prefill(dec, tokens, n_valid, ck, cv, n_head, ())
+    n_valid are garbage that callers must not read. With a tp group the
+    tree and ck/cv are this rank's shards and kv holds its d / tp columns;
+    with an sp group ck/cv hold its frames."""
+    hidden, kv, _ = _prefill(dec, tokens, n_valid, ck, cv, n_head, (), tp=tp, sp=sp)
     return hidden, kv
 
 
@@ -300,14 +346,14 @@ def prefill_with_alignment(dec, tokens, n_valid, ck, cv, *, n_head, alignment_he
     return hidden, kv, torch.stack(align)[:, 0]
 
 
-def decoder_forward(dec, tokens, ck, cv, *, n_head):
+def decoder_forward(dec, tokens, ck, cv, *, n_head, tp=None):
     """The teacher-forced decoder over full sequences, the training forward
     (whisper_tpu/models/graphs.py decoder_forward): the prefill's layers at
     n_valid = T, which is the plain causal mask, keeping no K/V.
 
     tokens: (B, T) int; ck/cv: (L, B, H, dh, 1500). Returns logits (B, T,
-    V) float32."""
-    hidden, _, _ = _prefill(dec, tokens, tokens.shape[1], ck, cv, n_head, (), keep_kv=False)
+    V) float32, replicated over a tp group."""
+    hidden, _, _ = _prefill(dec, tokens, tokens.shape[1], ck, cv, n_head, (), keep_kv=False, tp=tp)
     return hidden_to_logits(dec, hidden)
 
 
@@ -368,7 +414,7 @@ def hidden_to_logits(dec, hidden):
     return logits if scale is None else logits * scale
 
 
-def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
+def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head, tp=None, sp=None):
     """One autoregressive step for all rows.
 
     tokens: (B,) int — the tokens sampled at the previous step
@@ -377,6 +423,7 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
     src:    (B,) int or None — the beam reorder from the previous update:
             row b continues the history of row src[b]
     ck/cv:  (L, Bc, H, dh, 1500), B % Bc == 0, one entry per audio
+    tp, sp: process groups, as in `prefill` (the cache holds d / tp)
 
     Returns (logits (B, n_vocab) f32, cache)."""
     pos = int(pos)
@@ -388,12 +435,13 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
     B = tokens.shape[0]
     d = dec["tok_emb"].shape[1]
     dh = d // n_head
+    n_head //= group_size(tp)
     x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"][pos]
     x = x[:, None, :]  # (B, 1, d)
 
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
-        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        h = copy_to_group(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5), tp)
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
         cache[l, 0, :, pos] = _dot(h, blk, "attn_k_w")[:, 0]
         cache[l, 1, :, pos] = (_dot(h, blk, "attn_v_w") + blk["attn_v_b"])[:, 0]
@@ -401,14 +449,14 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head):
         vals = cache[l, 1, :, : pos + 1].view(B, pos + 1, n_head, dh).transpose(1, 2)
         qh = (q * (dh**-0.5)).view(B, 1, n_head, dh).transpose(1, 2)  # (B, H, 1, dh)
         w = _softmax_f32(matmul_f32(qh, keys.transpose(-1, -2)), x.dtype)  # (B, H, 1, pos+1)
-        x = x + _dot(_merge_heads(w @ vals), blk, "attn_o_w") + blk["attn_o_b"]
-        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
-        x = x + _mlp(x, blk)
+        x = _self_attn_out(x, blk, _merge_heads(w @ vals), tp)
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head, tp=tp, sp=sp)
+        x = x + _mlp(x, blk, tp)
     x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
     return hidden_to_logits(dec, x[:, 0]), cache
 
 
-def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, width=None):
+def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, width=None, tp=None, sp=None):
     """K tokens per row at per-row cache slots, in one pass (the
     speculative engine's draft step at K = 1 and its verify pass).
 
@@ -423,12 +471,14 @@ def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, widt
               logits are computed and must be ignored
     width:    a host int >= max(pos): the cache slots attended (None reads
               max(pos) from the device)
+    tp, sp:   process groups, as in `prefill` (the cache holds d / tp)
 
     Query i of row b sees the cached slots below pos[b] and the chunk's keys
     j <= i. Returns (logits (B, K, n_vocab) f32, cache)."""
     blocks = dec["blocks"]
     dtype = blocks["attn_q_b"].dtype
     B, K = tokens_k.shape
+    n_head //= group_size(tp)
     C, d = cache.shape[3], cache.shape[4]
     dh = d // n_head
     dev = tokens_k.device
@@ -448,7 +498,7 @@ def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, widt
 
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
-        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        h = copy_to_group(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5), tp)
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]  # (B, K, d)
         k = _dot(h, blk, "attn_k_w")
         v = _dot(h, blk, "attn_v_w") + blk["attn_v_b"]
@@ -459,9 +509,9 @@ def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, widt
         s_chunk = matmul_f32(qh, kn.transpose(-1, -2)) + causal  # (B, H, K, K)
         w = _softmax_f32(torch.cat([s_cache, s_chunk], dim=-1), dtype)
         wv = w[..., :W] @ vc + w[..., W:] @ vn
-        x = x + _dot(_merge_heads(wv), blk, "attn_o_w") + blk["attn_o_b"]
-        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
-        x = x + _mlp(x, blk)
+        x = _self_attn_out(x, blk, _merge_heads(wv), tp)
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head, tp=tp, sp=sp)
+        x = x + _mlp(x, blk, tp)
 
         new = torch.stack([k, v]).to(cache.dtype)  # (2, B, K, d)
         if active is not None:

@@ -62,17 +62,35 @@ class Whisper(nn.Module):
         # speculative greedy decoding (set_draft_model)
         self.draft_k = 4
         self.set_draft_model(None)
+        self.set_mesh(None)
 
     # ---- graph entry points -------------------------------------------------
+
+    def _mesh_pick(self, plain, sharded, batch: int):
+        """The sharded function when a mesh is set and the batch splits over
+        dp; the plain single-device one otherwise (transcribe()'s
+        per-window n_audio=1 calls under a dp > 1 mesh)."""
+        if self.mesh is None:
+            return plain
+        dp = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape)).get("dp", 1)
+        return sharded if batch % dp == 0 else plain
 
     @torch.inference_mode()
     def encode(self, mel) -> torch.Tensor:
         """mel: (B, n_mels, 3000) -> audio features (B, 1500, d)."""
         mel = torch.as_tensor(mel, device=self.device)
-        return graphs.encode(self.params["encoder"], mel, n_head=self.dims.n_audio_head)
+        fn = self._mesh_pick(self._encode_plain, self._encode_sharded, mel.shape[0])
+        return fn(mel)
 
     @torch.inference_mode()
     def cross_kv(self, xa):
+        fn = self._mesh_pick(self._cross_kv_plain, self._cross_kv_sharded, xa.shape[0])
+        return fn(xa)
+
+    def _encode_plain(self, mel):
+        return graphs.encode(self.params["encoder"], mel, n_head=self.dims.n_audio_head)
+
+    def _cross_kv_plain(self, xa):
         return graphs.cross_kv(self.params["decoder"], xa, n_head=self.dims.n_text_head)
 
     @torch.inference_mode()
@@ -130,9 +148,12 @@ class Whisper(nn.Module):
     def hidden_to_logits(self, hidden):
         return graphs.hidden_to_logits(self.params["decoder"], hidden)
 
-    def new_cache(self, batch: int) -> torch.Tensor:
-        """An empty (L, 2, batch, 448, d) self-attention K/V cache."""
-        shape = (self.dims.n_text_layer, 2, batch, graphs.CACHE_SLOTS, self.dims.n_text_state)
+    def new_cache(self, batch: int, width: Optional[int] = None) -> torch.Tensor:
+        """An empty (L, 2, batch, 448, width) self-attention K/V cache; the
+        width defaults to d (a tensor-parallel rank's is d / tp)."""
+        shape = (
+            self.dims.n_text_layer, 2, batch, graphs.CACHE_SLOTS, width or self.dims.n_text_state
+        )  # fmt: skip
         return torch.zeros(shape, dtype=self.compute_dtype, device=self.device)
 
     @torch.inference_mode()
@@ -140,7 +161,7 @@ class Whisper(nn.Module):
         """The prefill's kv (L, 2, n_audio, P, d) -> a cache (L, 2,
         n_audio * n_group, 448, d) holding each audio's K/V in slots 0..P-1
         of its n_group rows (audio-major), as engine.FusedEngine lays it."""
-        cache = self.new_cache(kv.shape[2] * n_group)
+        cache = self.new_cache(kv.shape[2] * n_group, kv.shape[-1])
         cache[:, :, :, : kv.shape[3]] = kv.repeat_interleave(n_group, dim=2)
         return cache
 
@@ -189,6 +210,32 @@ class Whisper(nn.Module):
         self._spec_engine = None  # the decoding task builds it for this draft
         if draft is not None:
             self.draft_k = int(k)
+
+    def set_mesh(self, mesh):
+        """Run this model's whole decode surface - decode() / transcribe() /
+        transcribe_batch / ContinuousBatcher / the servers - on `mesh`
+        (parallel/mesh.py), SPMD: every rank calls the same entry points
+        with the same inputs and gets the same results. The encoder and the
+        cross-K/V run over (dp, tp) and are all-gathered; the engines
+        (parallel/serve.py) split the audio batch over dp, the heads over
+        tp and the cross-K/V frames over sp. Batches dp does not divide
+        (transcribe()'s per-window n_audio=1) encode unsharded and decode
+        unsharded over dp, so keep serving batch sizes at a multiple of dp.
+        Pass None to restore the single-device model."""
+        self.mesh = mesh
+        self._fused_engine = None  # the decoding task builds it for this mesh
+        self._spec_engine = None
+        self._encode_sharded = self._cross_kv_sharded = None
+        if mesh is None:
+            return
+        from ..parallel.serve import dp_cross_kv, dp_encode
+        from ..parallel.sharding import shard_params
+
+        enc = shard_params(self.params["encoder"], mesh)
+        dec = shard_params(self.params["decoder"], mesh)
+        encode_fn, cross_kv_fn = dp_encode(self, mesh), dp_cross_kv(self, mesh)
+        self._encode_sharded = lambda mel: encode_fn(enc, mel)
+        self._cross_kv_sharded = lambda xa: cross_kv_fn(dec, xa)
 
     # ---- high-level API ------------------------------------------------------
 

@@ -51,6 +51,8 @@ class SpeculativeEngine:
     steps, verify rounds, tokens decoded (the longest row's), seconds) of
     the latest runs."""
 
+    _sp = None  # the frame split of both cross-K/V (parallel/serve.py)
+
     def __init__(self, model, draft_model, k: int = 4, weights: str = ""):
         if model.dims.n_vocab != draft_model.dims.n_vocab:
             raise ValueError(
@@ -63,18 +65,21 @@ class SpeculativeEngine:
         self.draft = draft_model
         self.k = int(k)
         # the models' cached engines: their decoder trees and penalty vectors
-        self._target = model_engine(model, weights)
-        self._draft = model_engine(draft_model, weights)
+        self._target = self._model_engine(model, weights)
+        self._draft = self._model_engine(draft_model, weights)
         self.weights = self._target.weights
         self.last_stats: Optional[dict] = None
         self.history = collections.deque(maxlen=HISTORY_RUNS)
+
+    def _model_engine(self, model, weights):
+        return model_engine(model, weights)
 
     def _prefill(self, engine, first, n_initial, ck, cv):
         """(hidden (A, n, d), cache (L, 2, A, 448, d)) of one model."""
         m = engine.model
         hidden, kv = graphs.prefill(
             engine._decoder_params(), first[:, :n_initial], n_initial, ck, cv,
-            n_head=m.dims.n_text_head,
+            n_head=m.dims.n_text_head, tp=engine._tp, sp=self._sp,
         )  # fmt: skip
         return hidden, m.kv_to_cache_grouped(kv, 1)
 
@@ -190,7 +195,7 @@ class SpeculativeEngine:
                     tok_in = tokens[rows, p_d.long()][:, None]  # (A, 1)
                     logits_d, cache_d = graphs.decode_chunk(
                         dec_d, tok_in, p_d, cache_d, draft_ck, draft_cv, n_head=n_head_d,
-                        active=active, width=int(pd_h.max()),
+                        active=active, width=int(pd_h.max()), tp=self._draft._tp, sp=self._sp,
                     )  # fmt: skip
                     write_pos = p_d + 1
                     prop, _ = greedy_argmax(
@@ -211,7 +216,7 @@ class SpeculativeEngine:
                 t_in = tokens.gather(1, vidx)
                 logits_v, cache_t = graphs.decode_chunk(
                     dec_t, t_in, n - 1, cache_t, ck, cv, n_head=n_head_t, active=live,
-                    width=int(n_h.max()) - 1,
+                    width=int(n_h.max()) - 1, tp=self._target._tp, sp=self._sp,
                 )  # fmt: skip
                 # one launch filters and picks all K + 1 positions of every row
                 nt = (n[:, None] + j_idx[None, :]).reshape(-1).to(torch.int32)
