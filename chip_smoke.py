@@ -118,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
      engine (a tiny-class draft with turbo's vocabulary and mels, K = 4)
      against the plain engine on one window, with a random draft and with
      a one-token vocabulary (every draft accepted): rounds, acceptance,
-     tokens per round, ms per token (bf16: the median of three runs after
+     tokens per round, ms per token (bf16: the median of two runs after
      an untimed one), launches (one scalar greedy launch and one per-row
      launch per draft step and verify round, checked on every run), in
      bf16 and at float32, where the tokens must be equal; one profiled speculative run
@@ -172,17 +172,39 @@ Phases (any failure raises and the script exits non-zero):
      device time and the host's blocked read of the `completed` flag, per
      step of the engine's loop; then one turbo train step at batch 2 (wall,
      device-busy ms, idle share, kernels, the five longest by name);
+  export. torch.export, AOTInductor and the native runner
+     (whisper_tpu_torch/export.py, runtime/aoti.py, csrc/wtt_transcribe.cpp):
+     the runner built with g++ while three pipelines are exported and
+     AOT-compiled at once (tiny float32, tiny int8, turbo bf16; each
+     graph's export and cold-compile seconds, a second load of the turbo
+     encoder from the package cache); at tiny dims on jfk the runner's
+     tokens equal the eager engine's on the same mel bytes (greedy and
+     beam 5 at T = 0, int8 greedy, and the ladder's accepted draw at its
+     temperature and seed), and a pipeline missing one package makes it
+     exit non-zero; each turbo package against the same function run
+     eagerly on the same inputs (max |diff| / max |ref|, step 0's argmax
+     equal, the step's cache written in place, the step packages' device
+     ms and kernels per call); the 60 s clip greedy and beam 5 through the
+     runner at T = 0, its first window against the eager engine (common
+     prefix; where they part, the eager top-two gap) with both ms per
+     token, the runner's ms per token split into the step package's call,
+     the update and the done read; jfk through the runner's ladder, and
+     --serve answering jfk with that run's tokens. The runner's update launches
+     (once a T = 0 step, counted where it calls the C ABI) count on the
+     main path;
   7. print the kernels line, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, where CUDA is not available.
 """
 
+import concurrent.futures
 import contextlib
 import copy
 import ctypes
 import dataclasses
 import importlib
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -220,7 +242,7 @@ TS_BEGIN, EOT, NO_TS = 50365, 50257, 50364  # large-v3 / turbo vocabulary
 SAMPLE_BEGIN = 3
 SCORE_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-REPS = 100
+REPS = 50  # calls per kernel timing
 EMPTY = {}  # the empty kernel's nvcc process ("nvcc"), then its library ("lib")
 
 
@@ -2326,7 +2348,7 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def spec_bracket(model, draft, window, only_token=None, k=4, reps=3):
+def spec_bracket(model, draft, window, only_token=None, k=4, reps=2):
     """The plain engine and the speculative engine (draft `draft`, K = k) on
     one greedy window at T = 0: each run once untimed, then `reps` timed
     runs of each, alternating, and the median wall reported (reps = 1: no
@@ -3394,6 +3416,477 @@ def parallel_phase(audio, jfk, card):
     return counts
 
 
+# ---- export_runtime: torch.export, AOTInductor and the native runner -------
+
+EXPORT_DIR = os.path.join(ROOT, "smoke", "_build", "export")
+EXPORT_TINY_DIMS = ModelDimensions(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+STEP_BEAM_SRC = (2, 0, 1, 4, 3)  # the reorder the turbo beam step is checked with
+
+
+def write_wav(path, audio):
+    """16 kHz mono 16-bit PCM, for the runner's audio decoder."""
+    import wave
+
+    pcm = np.clip(np.round(np.asarray(audio) * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return path
+
+
+def runner_lines(stderr):
+    return [json.loads(line[6:]) for line in stderr.splitlines() if line.startswith("[wtt] {")]
+
+
+def run_runner(binary, pdir, audio_path, *flags, timeout=600):
+    """One single-shot run of wtt_transcribe: its transcript, its attempt
+    lines (one per decode of a window, the accepted one marked), the file's
+    summary line, and its wall seconds (process start, graph loads and
+    weight uploads included)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [binary, pdir, audio_path, *flags], capture_output=True, text=True, errors="replace",
+        timeout=timeout,
+    )  # fmt: skip
+    if res.returncode != 0:
+        raise AssertionError(f"wtt_transcribe {flags} exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = runner_lines(res.stderr)
+    (summary,) = [line for line in lines if "file" in line]
+    attempts = [line for line in lines if "window" in line]
+    for a in attempts:  # an update kernel once a step at T = 0, none when sampling
+        if a["greedy_launches"] + a["beam_launches"] != (a["steps"] if a["temperature"] == 0 else 0):
+            raise AssertionError(f"the runner's update launches do not match its steps: {a}")
+    other = [line for line in res.stderr.splitlines() if not line.startswith("[wtt]")]
+    return dict(text=res.stdout, attempts=attempts, summary=summary, seconds=time.perf_counter() - t0,
+                loads=[line for line in res.stderr.splitlines() if "loaded in" in line],
+                other_stderr=[len(other), sorted(set(line[:160] for line in other))[:4]])  # fmt: skip
+
+
+def accepted_tokens(run):
+    """The tokens the runner kept: each window's accepted, not skipped
+    attempt (what --serve replies with)."""
+    return [t for a in run["attempts"] if a["accepted"] and not a["skipped"] for t in a["token_ids"]]
+
+
+def pipeline_manifest(pdir):
+    with open(os.path.join(pdir, "pipeline.txt")) as f:
+        return dict(line.rstrip("\n").split(" ", 1) for line in f)
+
+
+def ranked_tokens(out, P, eot, G):
+    """The runner's choice from FusedEngine.run's outputs (wtt_transcribe.cpp
+    decode_window): greedy's row up to EOT; at beam (G > 0) the finished
+    pool topped up with live beams by sum_logprob, ranked by score / length."""
+    toks, n, slp = out[0], int(out[1]), out[2]
+    if not G:
+        seq = [int(t) for t in toks[0, P:n]]
+        return seq[: seq.index(eot)] if eot in seq else seq
+    ftok, fscore, flen = out[4][0], out[5][0], out[6][0]
+    cands = [([int(t) for t in ftok[i, P : flen[i] - 1]], float(fscore[i]))
+             for i in range(min(int(out[7][0]), G))]  # fmt: skip
+    for b in sorted(range(G), key=lambda b: -float(slp[b])):
+        if len(cands) >= G:
+            break
+        cands.append(([int(t) for t in toks[b, P:n]], float(slp[b])))
+    return max(cands, key=lambda c: c[1] / max(len(c[0]), 1))[0]
+
+
+def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights=""):
+    """FusedEngine.run on a (n_mels, 3000) window as the runner decodes it
+    (the pipeline's masks, manifest and seed): (the tokens the runner
+    would pick, ms per token of the run)."""
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    m = pipeline_manifest(pdir)
+    tok = get_tokenizer(model.is_multilingual, num_languages=model.num_languages,
+                        language="en", task="transcribe")  # fmt: skip
+    initial = [int(t) for t in m["initial_tokens"].split()]
+    smask = np.fromfile(os.path.join(pdir, "suppress_mask.bin"), dtype=bool)
+    bmask = np.fromfile(os.path.join(pdir, "blank_mask.bin"), dtype=bool)
+    G = int(m["beam_size"]) if beam else 1
+    xa = model.encode(np.asarray(mel)[None])
+    ck, cv = model.cross_kv(xa)
+    engine = FusedEngine(model, weights=weights)
+    out = engine.run(
+        initial, ck, cv, sot_index=0, suppress_ids=np.nonzero(smask)[0].tolist(),
+        blank_ids=np.nonzero(bmask)[0].tolist(), max_initial_ts_index=int(m["max_initial_ts_index"]),
+        sample_len=int(m["sample_len"]), n_group=G, beam_search=beam,
+        max_candidates=G if beam else 0, use_timestamps=True, temperature=temperature,
+        eot=tok.eot, timestamp_begin=tok.timestamp_begin, no_timestamps=tok.no_timestamps,
+        no_speech=tok.no_speech, rng_seed=seed,
+    )  # fmt: skip
+    _, _, steps, seconds = engine.history[-1]
+    return ranked_tokens(out, len(initial), tok.eot, G if beam else 0), seconds * 1e3 / steps
+
+
+def parting_gap(model, pdir, mel, eager, runner):
+    """Where the runner's tokens first part from the eager engine's: the
+    eager filtered log-probs there given the common prefix (one prefill over
+    it, greedy's filters and penalties): its pick and its top-two gap."""
+    p = common_prefix(eager, runner)
+    if p >= min(len(eager), len(runner)):
+        return None
+    m = pipeline_manifest(pdir)
+    initial = [int(t) for t in m["initial_tokens"].split()]
+    P, n = len(initial), len(initial) + p
+    pens = [torch.from_numpy(np.fromfile(os.path.join(pdir, f), np.float32)).to(DEV)
+            for f in ("suppress_pen.bin", "begin_pen.bin")]  # fmt: skip
+    toks = torch.zeros((1, graphs.CACHE_SLOTS), dtype=torch.int32, device=DEV)
+    toks[0, :n] = torch.tensor(initial + list(eager[:p]), dtype=torch.int32)
+    dec = model.params["decoder"]
+    with torch.inference_mode():
+        ck, cv = model.cross_kv(model.encode(np.asarray(mel)[None]))
+        hidden, _ = graphs.prefill(dec, toks[:, :n], n, ck, cv, n_head=model.dims.n_text_head)
+        lg = graphs.hidden_to_logits(dec, hidden[:, n - 1])
+        filt = dict(use_timestamps=True, eot=int(m["eot"]), timestamp_begin=int(m["timestamp_begin"]))
+        lp = torch.log_softmax(bk.apply_filters(lg, toks, n, P, *pens, **filt), dim=-1)[0]
+    top = lp.topk(2)
+    return dict(position=p, tokens=[int(eager[p]), int(runner[p])], eager_pick=int(top.indices[0]),
+                top2_gap=(top.values[0] - top.values[1]).item(),
+                logprob_of_tokens=[lp[int(eager[p])].item(), lp[int(runner[p])].item()])  # fmt: skip
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| over want's finite entries; infinite
+    where the two differ in their non-finite entries (a filtered -inf)."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
+        return float("inf")
+    return ((got - want)[fin].abs().max() / want[fin].abs().max().clamp_min(1e-30)).item()
+
+
+def profile_kernels(fn, reps=20):
+    """Device ms per call (the union of kernel intervals), kernels per call
+    and the five longest kernels by name, from one profile of `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_ms=busy / reps / 1e3, kernels=len(spans) / reps,
+                top=[[name[:80], us / reps / 1e3] for name, us in top])  # fmt: skip
+
+
+def turbo_graph_checks(model, pdir, mel):
+    """Each turbo graph through its AOTInductor package (AotiRunner, the
+    package cache the export filled) against the same function run eagerly
+    on the same inputs: max |diff| / max |ref| per output; the prefill's
+    argmax (step 0's) equal; whether the step wrote the cache in place; the
+    step packages' device ms and kernels per call; and the encoder loaded a
+    second time from the package cache."""
+    from whisper_tpu_torch.export import param_leaves, pipeline_graphs
+    from whisper_tpu_torch.runtime.aoti import AotiRunner
+
+    fns = pipeline_graphs(model)
+    m = pipeline_manifest(pdir)
+    runner = AotiRunner(pdir, cache_dir=os.path.join(EXPORT_DIR, "cache"))
+    out = {"load": {}}
+    for name in fns:
+        compile_s, load_s, cached = runner.load_graph(name)
+        if not cached:
+            raise AssertionError(f"{name}: the export's package was not in the cache")
+        out["load"][name] = load_s
+    t0 = time.perf_counter()
+    second = AotiRunner(pdir, cache_dir=os.path.join(EXPORT_DIR, "cache"))
+    out["encoder_cached_load"] = dict(zip(("compile_s", "load_s", "cached"), second.load_graph("encoder")),
+                                      wall_s=time.perf_counter() - t0)  # fmt: skip
+    del second
+
+    def check(name, inputs):
+        fn, args, n_params = fns[name]
+        weights = param_leaves(args[0]) if n_params else []
+        eager_in = [t.clone() for t in inputs]
+        with torch.no_grad():
+            want = fn(*([args[0]] if n_params else []), *eager_in)
+        want = list(want) if isinstance(want, (tuple, list)) else [want]
+        got = runner.execute(name, [*weights, *inputs])
+        out[name] = [rel_err(g, w) for g, w in zip(got, want)]
+        return got, want, eager_in
+
+    P = len(m["initial_tokens"].split())
+    mel_t = torch.as_tensor(np.asarray(mel)[None], device=DEV)
+    (xa,), (xa_ref,), _ = check("encoder", [mel_t])
+    (ck, cv), (ck_ref, cv_ref), _ = check("cross_kv", [xa_ref.contiguous()])
+    tokens = torch.tensor([[int(t) for t in m["initial_tokens"].split()]], dtype=torch.int32, device=DEV)
+    (logits, _, _), (logits_ref, _, kv_ref), _ = check("prefill", [tokens, ck_ref, cv_ref])
+    out["step0_argmax"] = [int(logits.argmax()), int(logits_ref.argmax())]
+    if out["step0_argmax"][0] != out["step0_argmax"][1]:
+        raise AssertionError(f"the prefill package's step-0 argmax differs: {out['step0_argmax']}")
+    pos = torch.tensor(P, dtype=torch.int32, device=DEV)
+    for name, G in (("step_greedy", 1), ("step_beam", len(STEP_BEAM_SRC))):
+        cache = model.kv_to_cache_grouped(kv_ref, G).contiguous()
+        last = logits_ref.argmax(-1).to(torch.int32).repeat(G)
+        src = [torch.tensor(STEP_BEAM_SRC, dtype=torch.int32, device=DEV)] if G > 1 else []
+        inputs = [last, pos, cache, *src, ck_ref, cv_ref]
+        _, _, eager_in = check(name, inputs)
+        out[name + "_cache"] = rel_err(cache, eager_in[2])
+        out[name + "_wrote_in_place"] = bool(cache[:, :, :, P].abs().max() > 0)
+        weights = param_leaves(fns[name][1][0])
+        out[name + "_profile"] = profile_kernels(lambda: runner.execute(name, [*weights, *inputs]))
+    toks = torch.zeros((1, graphs.CACHE_SLOTS), dtype=torch.int32, device=DEV)
+    toks[:, :P] = tokens
+    pens = fns["filters"][1][3:]
+    check("filters", [logits_ref.contiguous(), toks, torch.tensor([P], dtype=torch.int32, device=DEV), *pens])
+    return out
+
+
+class RunnerCalls:
+    """Runs of the native runner, summing the update launches it reports."""
+
+    def __init__(self, binary):
+        self.binary = binary
+        self.launches = {"greedy_argmax": 0, "beam_update": 0}
+
+    def count(self, summary):
+        self.launches["greedy_argmax"] += summary["greedy_launches"]
+        self.launches["beam_update"] += summary["beam_launches"]
+
+    def __call__(self, pdir, audio_path, *flags):
+        r = run_runner(self.binary, pdir, audio_path, *flags)
+        self.count(r["summary"])
+        return r
+
+
+def tiny_export_model():
+    """The tiny float32 model of the export phase (seeded weights)."""
+    return Whisper(EXPORT_TINY_DIMS, tiny_params(EXPORT_TINY_DIMS, seed=11), device="cuda",
+                   compute_dtype=torch.float32)  # fmt: skip
+
+
+def export_tiny_pipelines(dirs, cache):
+    """Run in a spawned process: export the tiny float32 and int8 pipelines
+    and compile the packages the tiny checks load (the int8 pipeline runs
+    greedy only: no beam step). Returns (export s, compile wall s, [(export
+    path, compile s, cached)])."""
+    from whisper_tpu_torch.export import export_pipeline
+    from whisper_tpu_torch.runtime.aoti import compile_graphs
+
+    os.nice(10)  # the turbo compile is the phase's longest path: it goes first on the cores
+    tiny = tiny_export_model()
+    t = time.perf_counter()
+    export_pipeline(dirs["tiny_f32"], tiny, compile=False)
+    export_pipeline(dirs["tiny_int8"], tiny, weights="int8", compile=False)
+    export_s = time.perf_counter() - t
+    jobs = [os.path.join(dirs[d], f"{g}.export.pt2") for d in ("tiny_f32", "tiny_int8")
+            for g in json.load(open(os.path.join(dirs[d], "timings.json")))
+            if (d, g) != ("tiny_int8", "step_beam")]  # fmt: skip
+    t = time.perf_counter()
+    results = compile_graphs(jobs, cache, workers=3)
+    return export_s, time.perf_counter() - t, [(j, *r) for j, r in zip(jobs, results)]
+
+
+def export_and_check_tiny(model, t_phase):
+    """Build the runner, export and AOT-compile the three pipelines, and
+    run the tiny checks, overlapping all of it with the turbo pipeline's
+    compile, which is the longest (its encoder): the runner's g++ build on a
+    thread; the tiny pipelines' exports and compiles in a spawned process;
+    the tiny checks on a thread as soon as the runner and the tiny packages
+    are there; the turbo pipeline through export_pipeline here (it compiles
+    by default on a card). Returns (RunnerCalls, {pipeline: directory})."""
+    from whisper_tpu_torch.export import export_pipeline
+    from whisper_tpu_torch.runtime import build as runner_build
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    cache = os.path.join(EXPORT_DIR, "cache")
+    dirs = {name: os.path.join(EXPORT_DIR, name) for name in ("tiny_f32", "tiny_int8", "turbo")}
+
+    def build_runner():
+        path = runner_build.build_runner()
+        return RunnerCalls(path), time.perf_counter() - t_phase
+
+    def check_tiny(exported, built):
+        exported.result()
+        runner, _ = built.result()
+        tiny_runner_checks(runner, tiny_export_model(), dirs, t_phase)
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ThreadPoolExecutor(2) as threads, \
+            concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as procs:  # fmt: skip
+        built = threads.submit(build_runner)
+        exported = procs.submit(export_tiny_pipelines, dirs, cache)
+        checked = threads.submit(check_tiny, exported, built)
+        t = time.perf_counter()
+        export_pipeline(dirs["turbo"], model, cache_dir=cache)
+        turbo_s = time.perf_counter() - t
+        (runner, build_s), (tiny_export_s, tiny_compile_s, results) = built.result(), exported.result()
+        checked.result()
+    timings = {d: json.load(open(os.path.join(dirs[d], "timings.json"))) for d in dirs}
+    for job, seconds, cached in results:
+        d, name = os.path.basename(os.path.dirname(job)), os.path.basename(job).removesuffix(".export.pt2")
+        timings[d][name].update(compile_s=seconds, cached=cached)
+    log(json.dumps({"phase": "export_runtime", "part": "build_and_compile", "runner_build_s": build_s,
+                    "tiny_export_s": tiny_export_s, "tiny_compile_wall_s": tiny_compile_s,
+                    "turbo_export_and_compile_s": turbo_s, "graphs": timings,
+                    "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+    return runner, dirs
+
+
+def tiny_runner_checks(runner, tiny, dirs, t_phase):
+    """Tiny float32 and int8 on jfk: the runner's tokens equal the engine's
+    on the same mel bytes (greedy, beam 5, int8 greedy, and the ladder's
+    accepted draw at its temperature and seed); a pipeline without one of
+    its packages makes the runner exit non-zero."""
+    from whisper_tpu_torch.runtime.native import decode_audio, log_mel_native
+
+    jfk_mel = log_mel_native(decode_audio(JFK_PATH, 16000), 80, padding=480000)[:, :3000]
+    out = {}
+    one = ["--tokens", "--max-windows", "1"]
+    checks = [
+        ("f32_greedy", runner(dirs["tiny_f32"], JFK_PATH, *one, "--no-fallback")["attempts"][0], False, ""),
+        ("int8_greedy", runner(dirs["tiny_int8"], JFK_PATH, *one, "--no-fallback")["attempts"][0], False, "int8"),
+    ]  # fmt: skip
+    # with --beam the ladder's T = 0 attempt is beam 5, the later ones draws;
+    # every tiny T = 0 result fails the gates on jfk (avg logprob near -10),
+    # so the accepted attempt is a draw
+    ladder_run = runner(dirs["tiny_f32"], JFK_PATH, *one, "--beam")
+    ladder = ladder_run["attempts"]
+    checks.append(("f32_beam5", ladder[0], True, ""))
+    if not ladder[-1]["temperature"] > 0:
+        raise AssertionError(f"the tiny ladder accepted T = 0; no draw to check: {ladder[-1]}")
+    checks.append(("f32_sampled", ladder[-1], False, ""))
+    for label, a, beam, weights in checks:
+        pdir = dirs["tiny_int8" if weights else "tiny_f32"]
+        want, _ = engine_window(tiny, pdir, jfk_mel, beam, a["temperature"], a["seed"], weights)
+        if a["token_ids"] != want:
+            raise AssertionError(f"tiny {label}: runner {a['token_ids'][:20]}... != engine {want[:20]}...")
+        out[label] = dict(tokens=len(want), steps=a["steps"], temperature=a["temperature"],
+                          seed=a["seed"], ms_per_token=a["ms_per_token"])  # fmt: skip
+    out["ladder_other_stderr"] = ladder_run["other_stderr"]
+
+    broken = os.path.join(EXPORT_DIR, "tiny_missing")
+    shutil.copytree(dirs["tiny_f32"], broken)
+    os.remove(os.path.join(broken, "step_greedy.aoti.pt2"))
+    res = subprocess.run([runner.binary, broken, JFK_PATH], capture_output=True, text=True, timeout=300)
+    if res.returncode == 0 or "missing" not in res.stderr:
+        raise AssertionError(f"a missing package: exit {res.returncode}, {res.stderr[-500:]}")
+    out["missing_package"] = res.stderr.strip().splitlines()[-1][:200]
+    log(json.dumps({"phase": "export_runtime", "part": "tiny", **out,
+                    "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+
+
+def serve_check(runner, pdir, audio_path, want):
+    """--serve: one request, whose reply's tokens must be `want`, then
+    shutdown; the server's wall seconds to come up and to answer. Its
+    stderr goes to a file, which nothing has to drain."""
+    sock = os.path.join(EXPORT_DIR, "wtt.sock")
+    err_path = os.path.join(EXPORT_DIR, "serve.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_file:
+        serving = subprocess.Popen([runner.binary, pdir, "--serve", sock],
+                                   stdout=subprocess.DEVNULL, stderr=err_file)  # fmt: skip
+    try:
+        while "serving on" not in open(err_path).read():
+            if serving.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"the serving runner did not come up: {open(err_path).read()[-2000:]}")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        reply = runner_request(sock, f"{audio_path}\n")
+        answer_s = time.perf_counter() - t1
+        bye = runner_request(sock, "shutdown\n")
+        rc = serving.wait(timeout=120)
+    finally:
+        if serving.poll() is None:
+            serving.kill()
+            serving.wait()
+    if reply.get("tokens") != want:
+        raise AssertionError(f"serve reply {str(reply)[:300]} != the single-shot run's tokens")
+    if bye != {"ok": True} or rc != 0:
+        raise AssertionError(f"serve shutdown: {bye}, exit {rc}")
+    for line in runner_lines(open(err_path).read()):
+        if "file" in line:
+            runner.count(line)
+    return dict(up_s=up_s, answer_s=answer_s, reply_tokens=len(want))
+
+
+def turbo_runner_checks(runner, model, jfk, pdir, card, t_phase):
+    """Turbo bf16: each graph's package against its eager run; the 60 s
+    clip greedy and beam 5 at T = 0, its first window against the eager
+    engine (the common prefix; where they part, the eager top-two gap
+    there) with both ms per token; jfk through the ladder, single-shot and
+    through --serve, whose reply must equal the single-shot run's tokens."""
+    from whisper_tpu_torch.runtime.native import decode_audio, log_mel_native
+
+    clip = write_wav(os.path.join(EXPORT_DIR, "clip60.wav"), np.tile(jfk, 6)[: 60 * 16000])
+    mel = log_mel_native(decode_audio(clip, 16000), model.dims.n_mels, padding=480000)[:, :3000]
+    log(json.dumps({"phase": "export_runtime", "part": "turbo_graphs",
+                    **turbo_graph_checks(model, pdir, mel), "card": card}))  # fmt: skip
+    out = {}
+    for label, beam in (("greedy", False), ("beam5", True)):
+        run = runner(pdir, clip, "--tokens", "--no-fallback", *(["--beam"] if beam else []))
+        first = run["attempts"][0]
+        eager, eager_ms = engine_window(model, pdir, mel, beam)
+        keys = ("ms_per_token", "graph_ms_per_token", "update_ms_per_token", "read_ms_per_token", "steps")
+        out[label + "_window1"] = dict(
+            tokens=len(first["token_ids"]), eager_tokens=len(eager),
+            common_prefix=common_prefix(first["token_ids"], eager),
+            parting=parting_gap(model, pdir, mel, eager, first["token_ids"]),
+            eager_ms_per_token=eager_ms, **{k: first[k] for k in keys},
+        )  # fmt: skip
+        out[label + "_clip60"] = dict(
+            windows=run["summary"]["windows"], seconds=run["summary"]["seconds"],
+            process_s=run["seconds"], rtfx=60.0 / run["summary"]["seconds"],
+            attempts=[[a["window"], a["steps"], a["ms_per_token"]] for a in run["attempts"]],
+            greedy_launches=run["summary"]["greedy_launches"],
+            beam_launches=run["summary"]["beam_launches"], loads=run["loads"],
+            other_stderr=run["other_stderr"],
+        )  # fmt: skip
+    # the ladder at turbo width on jfk (random weights fail every gate, so
+    # six attempts), single-shot and through --serve
+    ladder = runner(pdir, JFK_PATH, "--tokens")
+    out["jfk_ladder"] = dict(attempts=[[a["temperature"], a["seed"], a["steps"], a["ms_per_token"]]
+                                       for a in ladder["attempts"]], process_s=ladder["seconds"])  # fmt: skip
+    out["serve"] = serve_check(runner, pdir, JFK_PATH, accepted_tokens(ladder))
+    log(json.dumps({"phase": "export_runtime", "part": "turbo_runner", **out, "card": card,
+                    "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+
+
+def export_runtime_phase(model, jfk, card):
+    """Export, AOT-compile and run the native runner (tiny float32 and
+    int8, turbo bf16). Returns the runner's update launches."""
+    t_phase = time.perf_counter()
+    runner, dirs = export_and_check_tiny(model, t_phase)
+    turbo_runner_checks(runner, model, jfk, dirs["turbo"], card, t_phase)
+    if not all(runner.launches.values()):
+        raise AssertionError(f"the runner launched an update kernel no time: {runner.launches}")
+    log(json.dumps({"phase": "export_runtime", "seconds": time.perf_counter() - t_phase,
+                    "runner_launches": runner.launches}))  # fmt: skip
+    return runner.launches
+
+
+def runner_request(path, line, timeout=300.0):
+    """One request to a serving runner: a raw line, one JSON line back."""
+    import socket
+
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.settimeout(timeout)
+    try:
+        c.connect(path)
+        c.sendall(line.encode())
+        return json.loads(c.makefile("rb").readline())
+    finally:
+        c.close()
+
+
 def main():
     start = time.perf_counter()
 
@@ -3517,6 +4010,8 @@ def main():
     clock("loop_profiles")
     log(json.dumps({"phase": "train_profile", **train_profile(model), "card": card}))
     clock("train_profile")
+    add_counts(launches, export_runtime_phase(model, jfk, card))
+    clock("export_runtime")
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),

@@ -20,7 +20,7 @@ def _sources():
     for dirpath, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(dirpath, f)
 
 
@@ -43,6 +43,14 @@ def test_import_without_jax():
         "import whisper_tpu_torch.parallel.serve, whisper_tpu_torch.parallel.launch\n"
         "import whisper_tpu_torch.parallel.sequence, whisper_tpu_torch.parallel.pipeline\n"
         "from whisper_tpu_torch.parallel import DataParallelEngine, make_mesh, pp_encode, sp_encode\n"
+        "import os\n"
+        "from whisper_tpu_torch.kernels.build import BUILD_DIR\n"
+        "built = set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()\n"
+        "import whisper_tpu_torch.export, whisper_tpu_torch.runtime.aoti\n"
+        "import whisper_tpu_torch.runtime.native, whisper_tpu_torch.runtime.build\n"
+        "import whisper_tpu_torch.runtime_config\n"
+        "assert (set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()) == built\n"
+        "assert whisper_tpu_torch.runtime.native._lib is None  # the audio library is not loaded\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'whisper_tpu' or m.startswith(('whisper_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

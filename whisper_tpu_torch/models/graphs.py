@@ -9,6 +9,7 @@ layouts, so that the tests compare like with like:
   prefill_with_alignment                       -> ... + align scores (n_heads_sel, P, 1500)
   alignment_outputs  the word-timing replay    -> text_probs (P,), cost matrix (P, 1500)
   decode_step token (B,) + KV cache (L, 2, B, 448, d) -> logits (B, V) f32, cache
+  decode_step_fixed  the same at fixed shapes: pos a 0-d tensor, every slot read
   decode_chunk K tokens (B, K) at per-row slots pos (B,) -> logits (B, K, V) f32, cache
   decoder_forward  tokens (B, T) teacher-forced    -> logits (B, T, V) f32
 
@@ -20,7 +21,8 @@ forms that exist only for TPU layouts (one-hot slot writes, the row-map lazy
 beam reorder, bucketed cache phases, query chunking) are not copied:
 decode_step writes the new slot in place and reorders beams by an index
 gather over the occupied slots; decode_chunk attends over the cache up to
-the largest row position with a per-row key mask.
+the largest row position with a per-row key mask. decode_step_fixed is the
+exported form (export.py): no shape in it depends on a host value.
 
 A decoder tree from quant.quantize_decoder holds int8 weights with
 '<name>@scale' siblings, and the cross-K/V may be int8 (tensor, scale)
@@ -59,9 +61,18 @@ def _merge_heads(x):
 
 def _mm_f32(a, b):
     """cuBLAS's product of two bf16 (or f16) operands written as float32;
-    a's and b's batch dims broadcast."""
+    a's and b's batch dims broadcast. Under torch.export a batched product
+    takes another form: AOTInductor has a C shim for mm's out_dtype overload
+    but none for bmm's, so an exported graph multiplies a 2-D `b` as one mm
+    over a's flattened rows and widens the operands of any other batched
+    product (the same bf16 products, summed in float32)."""
     if a.dim() == b.dim() == 2:
         return torch.mm(a, b, out_dtype=torch.float32)
+    if torch.compiler.is_exporting():
+        if b.dim() == 2:
+            y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return y.view(*a.shape[:-1], b.shape[-1])
+        return a.float() @ b.float()
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     (m, k), n = a.shape[-2:], b.shape[-1]
     a3 = a.expand(*batch, m, k).reshape(-1, m, k)
@@ -452,6 +463,51 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head, tp=None, sp=Non
         x = _self_attn_out(x, blk, _merge_heads(w @ vals), tp)
         x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head, tp=tp, sp=sp)
         x = x + _mlp(x, blk, tp)
+    x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
+    return hidden_to_logits(dec, x[:, 0]), cache
+
+
+def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head):
+    """`decode_step` at fixed shapes, the form the exported step graphs take
+    (whisper_tpu/models/graphs.py decode_step without a window): nothing in
+    it reads the device from the host.
+
+    tokens: (B,) int — the tokens sampled at the previous step
+    pos:    0-d int tensor — the cache slot to write
+    cache:  (L, 2, B, 448, d) self-attention K/V, UPDATED IN PLACE: slot pos
+            of every layer is written, then all 448 slots are read with the
+            keys past pos masked
+    src:    (B,) int tensor or None — the beam reorder, a gather over the
+            whole cache (None: no reorder, as greedy needs none)
+    ck/cv:  (L, Bc, H, dh, 1500) or int8 pairs, B % Bc == 0
+
+    Returns (logits (B, n_vocab) f32, cache)."""
+    if src is not None:
+        cache.copy_(cache.index_select(2, src.long()))
+    blocks = dec["blocks"]
+    B = tokens.shape[0]
+    C, d = cache.shape[3], cache.shape[4]
+    dh = d // n_head
+    slot = pos.long().reshape(1)
+    x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"].index_select(0, slot)
+    x = x[:, None, :]  # (B, 1, d)
+    kmask = torch.zeros(C, device=x.device).masked_fill(
+        torch.arange(C, device=x.device) > slot, float("-inf")
+    )
+
+    for l in range(blocks["attn_q_w"].shape[0]):
+        blk = _layer(dec, l)
+        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
+        new = torch.stack([_dot(h, blk, "attn_k_w"), _dot(h, blk, "attn_v_w") + blk["attn_v_b"]])
+        cache[l].index_copy_(2, slot, new.to(cache.dtype))  # (2, B, 1, d) into slot pos
+        keys = cache[l, 0].view(B, C, n_head, dh).transpose(1, 2)  # (B, H, C, dh)
+        vals = cache[l, 1].view(B, C, n_head, dh).transpose(1, 2)
+        qh = (q * (dh**-0.5)).view(B, 1, n_head, dh).transpose(1, 2)  # (B, H, 1, dh)
+        w = _softmax_f32(matmul_f32(qh, keys.transpose(-1, -2)) + kmask, x.dtype)
+        x = _self_attn_out(x, blk, _merge_heads(w @ vals), None)
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
+        x = x + _mlp(x, blk)
     x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
     return hidden_to_logits(dec, x[:, 0]), cache
 
