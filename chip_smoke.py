@@ -79,9 +79,19 @@ Phases (any failure raises and the script exits non-zero):
      own whole-file mel, batch against sequential tokens with the same
      seeded weights at float32, and the engine's and the host loop's ms per
      step on the same windows at B = 1 and B = 4;
-  5c. the CLI: `python -m whisper_tpu_torch --device cuda --parallel True`
-     in a subprocess on two files with a tiny model written by save_model;
-     all five outputs of each file present;
+  5c. the CLI: `python -m whisper_tpu_torch --device cuda --parallel True
+     --profile_sync True` in a subprocess on two files with a tiny model
+     written by save_model; all five outputs of each file present, and the
+     per-graph timing report in its stdout with the "encoder" and
+     "fused_decode" spans;
+  layers. smoke/layers_ms.py in a fresh process (no profiler session run
+     in it): transcribe() of the 60 s clip at turbo width, greedy and beam
+     5 at T = 0, with profiling.set_sync(True): each span's summary, the
+     encoder + cross-K/V span, per window the engine's run (the
+     fused_decode span) and its ms a step, and transcribe()'s wall less
+     its spans; the clip's synchronized log-mel ms; the engine's ms a step
+     with sync off beside profiling disabled; one traced window, whose
+     Chrome trace must hold the greedy update kernel's events;
   bf16_rows: one turbo bf16 window through encode, cross_kv, prefill, the
      logits and one decode_step at B = 1 and as row 0 of B = 4, beside
      three other audios and beside three copies of itself: per output the
@@ -189,7 +199,11 @@ Phases (any failure raises and the script exits non-zero):
      prefix; where they part, the eager top-two gap) with both ms per
      token, the runner's ms per token split into the step package's call,
      the update and the done read; jfk through the runner's ladder, and
-     --serve answering jfk with that run's tokens. The runner's update launches
+     --serve answering jfk with that run's tokens; then the one-command
+     tool (`python -m whisper_tpu_torch.export_pipeline --checkpoint
+     tiny.npz --no-build`, into the phase's compile cache), whose pipeline
+     gives the runner the tiny float32 pipeline's tokens (its timings.json,
+     with each graph's cached flag, printed). The runner's update launches
      (once a T = 0 step, counted where it calls the C ABI) count on the
      main path;
   7. print the kernels line, the card's name and power limit, and the
@@ -219,7 +233,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script runs only on a card")
 
-from whisper_tpu_torch import DecodingOptions, decode, load_audio, save_model  # noqa: E402
+from whisper_tpu_torch import DecodingOptions, decode, load_audio, profiling, save_model  # noqa: E402
 from whisper_tpu_torch import batch as batch_module  # noqa: E402
 from whisper_tpu_torch import transcribe_batch, transcribe_chunked  # noqa: E402
 from whisper_tpu_torch.decoding import DecodingTask  # noqa: E402
@@ -1726,9 +1740,11 @@ def batch_phase(model, audio, card):
 
 
 def cli_phase():
-    """`python -m whisper_tpu_torch --device cuda --parallel True` in a
-    subprocess on two copies of jfk.flac, with a tiny float32 model written
-    by save_model: all five outputs of each file present."""
+    """`python -m whisper_tpu_torch --device cuda --parallel True
+    --profile_sync True` in a subprocess on two copies of jfk.flac, with a
+    tiny float32 model written by save_model: all five outputs of each file
+    present, and the per-graph report (profiling.py) in its stdout with
+    the "encoder" and "fused_decode" spans."""
     d = os.path.join(ROOT, "smoke", "_build", "cli")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
@@ -1743,7 +1759,8 @@ def cli_phase():
     cmd = [
         sys.executable, "-m", "whisper_tpu_torch", *files, "--model", npz, "--device", "cuda",
         "--parallel", "True", "--language", "en", "--verbose", "False",
-        "--temperature_increment_on_fallback", "None", "--output_dir", out_dir,
+        "--temperature_increment_on_fallback", "None", "--profile_sync", "True",
+        "--output_dir", out_dir,
     ]  # fmt: skip
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
@@ -1759,7 +1776,28 @@ def cli_phase():
         segments = len(json.load(f)["segments"])
     if segments == 0:
         raise AssertionError("the CLI's a.json holds no segment")
-    return dict(seconds=seconds, files=len(want), segments_a=segments, stdout=proc.stdout.strip()[-200:])
+    if profiling.REPORT_HEADER not in proc.stdout:
+        raise AssertionError(f"the CLI printed no timing report:\n{proc.stdout}")
+    report = proc.stdout.split(profiling.REPORT_HEADER, 1)[1].strip().splitlines()[1:]
+    spans = {row.split()[0]: row.split()[1:] for row in report if row.strip()}
+    if not {"encoder", "fused_decode"} <= set(spans):
+        raise AssertionError(f"the CLI's report lacks encoder or fused_decode: {report}")
+    return dict(seconds=seconds, files=len(want), segments_a=segments, report=spans)
+
+
+def layers_phase():
+    """smoke/layers_ms.py in a fresh process (one that has run no profiler
+    session): the per-layer split of transcribe() at turbo width through
+    profiling.py. Returns its JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "smoke", "layers_ms.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+    )  # fmt: skip
+    if proc.returncode != 0:
+        raise AssertionError(f"layers_ms failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    return dict(line, seconds=time.perf_counter() - t0)
 
 
 # ---- bf16_rows: one window alone and as row 0 of a batch of four -----------
@@ -3698,9 +3736,11 @@ def export_and_check_tiny(model, t_phase):
     run the tiny checks, overlapping all of it with the turbo pipeline's
     compile, which is the longest (its encoder): the runner's g++ build on a
     thread; the tiny pipelines' exports and compiles in a spawned process;
-    the tiny checks on a thread as soon as the runner and the tiny packages
-    are there; the turbo pipeline through export_pipeline here (it compiles
-    by default on a card). Returns (RunnerCalls, {pipeline: directory})."""
+    the export tool in a subprocess and the tiny checks, then the tool's, on
+    a thread as soon as the runner and the tiny packages are there (the tool
+    reads their compile cache); the turbo pipeline through
+    export_pipeline here (it compiles by default on a card). Returns
+    (RunnerCalls, {pipeline: directory})."""
     from whisper_tpu_torch.export import export_pipeline
     from whisper_tpu_torch.runtime import build as runner_build
 
@@ -3715,8 +3755,10 @@ def export_and_check_tiny(model, t_phase):
 
     def check_tiny(exported, built):
         exported.result()
+        tool = export_tool_start()
         runner, _ = built.result()
         tiny_runner_checks(runner, tiny_export_model(), dirs, t_phase)
+        export_tool_check(runner, dirs, t_phase, tool)
 
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ThreadPoolExecutor(2) as threads, \
@@ -3860,9 +3902,61 @@ def turbo_runner_checks(runner, model, jfk, pdir, card, t_phase):
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
 
 
+def export_tool_start():
+    """Start `python -m whisper_tpu_torch.export_pipeline` on the tiny
+    float32 model saved by save_model, into the phase's compile cache,
+    --no-build, at nice 10 beside the turbo compile (as the tiny compiles
+    run). Its graphs were just compiled there, so each should load from the
+    cache: a cold compile means the cache key moved (reported). Returns
+    (process, start time, log path)."""
+    npz = os.path.join(EXPORT_DIR, "tiny_f32.npz")
+    save_model(tiny_export_model(), npz)
+    cmd = [
+        "nice", "-n", "10", sys.executable, "-m", "whisper_tpu_torch.export_pipeline",
+        "--checkpoint", npz, "--out", os.path.join(EXPORT_DIR, "tool"), "--compute-dtype", "float32",
+        "--cache-dir", os.path.join(EXPORT_DIR, "cache"), "--no-build",
+    ]  # fmt: skip
+    log_path = os.path.join(EXPORT_DIR, "tool.log")
+    with open(log_path, "w") as out:  # a file: nothing has to drain a pipe
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=ROOT))  # fmt: skip
+    return proc, time.perf_counter(), log_path
+
+
+def export_tool_check(runner, dirs, t_phase, started):
+    """The tool's pipeline (export_tool_start) gives the runner built above
+    the same tokens as the phase's tiny float32 pipeline (greedy, one window
+    of jfk); its timings.json with each graph's cached flag is logged."""
+    proc, t0, log_path = started
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tool_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        tool_log = f.read()
+    if rc != 0:
+        raise AssertionError(f"the export tool failed ({rc}):\n{tool_log[-4000:]}")
+    tool_dir = os.path.join(EXPORT_DIR, "tool")
+    one = ("--tokens", "--max-windows", "1", "--no-fallback")
+    want = runner(dirs["tiny_f32"], JFK_PATH, *one)["attempts"][0]["token_ids"]
+    got = runner(tool_dir, JFK_PATH, *one)["attempts"][0]["token_ids"]
+    if got != want:
+        raise AssertionError(f"the tool's pipeline: {got[:20]}... != the phase's tiny f32 {want[:20]}...")
+    with open(os.path.join(tool_dir, "timings.json")) as f:
+        timings = json.load(f)
+    log(json.dumps({"phase": "export_runtime", "part": "tool", "seconds": tool_s, "tokens": len(got),
+                    "timings": timings, "cold": [g for g, t in timings.items() if not t.get("cached")],
+                    "printed": [ln for ln in tool_log.splitlines() if "exported pipeline" in ln],
+                    "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+
+
 def export_runtime_phase(model, jfk, card):
     """Export, AOT-compile and run the native runner (tiny float32 and
-    int8, turbo bf16). Returns the runner's update launches."""
+    int8, turbo bf16) and the one-command export tool. Returns the runner's
+    update launches."""
     t_phase = time.perf_counter()
     runner, dirs = export_and_check_tiny(model, t_phase)
     turbo_runner_checks(runner, model, jfk, dirs["turbo"], card, t_phase)
@@ -3959,6 +4053,8 @@ def main():
     clock("batch")
     log(json.dumps({"phase": "cli", **cli_phase()}))
     clock("cli")
+    log(json.dumps(layers_phase()))
+    clock("layers")
 
     log(json.dumps({"phase": "bf16_rows", **bf16_rows(model, audio), "card": card}))
     serving = {}

@@ -49,6 +49,7 @@ def test_import_without_jax():
         "import whisper_tpu_torch.export, whisper_tpu_torch.runtime.aoti\n"
         "import whisper_tpu_torch.runtime.native, whisper_tpu_torch.runtime.build\n"
         "import whisper_tpu_torch.runtime_config\n"
+        "import whisper_tpu_torch.profiling, whisper_tpu_torch.export_pipeline\n"
         "assert (set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()) == built\n"
         "assert whisper_tpu_torch.runtime.native._lib is None  # the audio library is not loaded\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
@@ -71,6 +72,7 @@ def test_sources_name_no_jax_and_no_jax_package_module():
         text = open(path, encoding="utf-8").read()
         assert not re.search(r"\bimport jax\b|\bfrom jax\b", text), path
         assert not re.search(r"whisper_tpu\.[A-Za-z_]", text), path
+        assert "WHISPER_TPU_PROFILE" not in text, path  # profiling takes set_sync
         if path.endswith(".py"):
             for node in ast.walk(ast.parse(text)):
                 if isinstance(node, ast.Import):

@@ -2,15 +2,17 @@
 
 Constants and semantics follow whisper_tpu/audio.py: 16 kHz, 400-point FFT,
 160-sample hop, 30 s (3000-frame) windows. Decoding goes through the native
-decoder only (runtime/native.py).
+decoder (runtime/native.py: WAV and FLAC) and falls back to an ffmpeg
+subprocess for other containers, as the JAX package's load_audio does.
 """
 
+from subprocess import CalledProcessError, run
 from typing import Union
 
 import numpy as np
 
 from .ops.stft import log_mel_spectrogram_np
-from .runtime import decode_audio
+from .runtime.native import decode_audio, native_available
 from .utils import exact_div
 
 SAMPLE_RATE = 16000
@@ -25,9 +27,39 @@ FRAMES_PER_SECOND = exact_div(SAMPLE_RATE, HOP_LENGTH)  # 10 ms per frame
 TOKENS_PER_SECOND = exact_div(SAMPLE_RATE, N_SAMPLES_PER_TOKEN)  # 20 ms per token
 
 
+# copied from whisper_tpu/audio.py:34-48
+def _load_audio_ffmpeg(file: str, sr: int) -> np.ndarray:
+    cmd = [
+        "ffmpeg", "-nostdin", "-threads", "0", "-i", file,
+        "-f", "s16le", "-ac", "1", "-acodec", "pcm_s16le", "-ar", str(sr), "-",
+    ]  # fmt: skip
+    try:
+        out = run(cmd, capture_output=True, check=True).stdout
+    except CalledProcessError as e:
+        raise RuntimeError(f"Failed to load audio: {e.stderr.decode()}") from e
+    except FileNotFoundError as e:
+        raise RuntimeError(
+            "Cannot decode audio: native decoder failed and ffmpeg is not installed"
+        ) from e
+    return np.frombuffer(out, np.int16).flatten().astype(np.float32) / 32768.0
+
+
 def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
-    """Read an audio file as a mono float32 waveform at `sr` Hz."""
-    return decode_audio(file, sr)
+    """Read an audio file as a mono float32 waveform at `sr` Hz: the native
+    decoder first; where it fails, ffmpeg; where both fail, the native
+    decoder's error (ffmpeg's when the native library is unavailable)."""
+    native_error = None
+    if native_available():
+        try:
+            return decode_audio(file, sr)
+        except RuntimeError as e:
+            native_error = e
+    try:
+        return _load_audio_ffmpeg(file, sr)
+    except RuntimeError:
+        if native_error is not None:
+            raise native_error
+        raise
 
 
 def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):

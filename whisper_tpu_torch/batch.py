@@ -187,7 +187,7 @@ class _Rounds:
         )
 
         if self.word_timestamps:
-            ck, cv = model.cross_kv(result.audio_features[None])
+            ck, cv = model.cross_kv_untimed(result.audio_features[None])
             add_word_timestamps(
                 segments=segments,
                 model=model,

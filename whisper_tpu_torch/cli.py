@@ -6,7 +6,9 @@ model runs on the card unless the caller asks for the CPU) and
 `--compute_dtype` read as a torch dtype. `--parallel True` transcribes all
 the files together through transcribe_batch; otherwise each file goes
 through transcribe() in turn. Each file's transcript is written as txt,
-vtt, srt, tsv and json (or the one `--output_format`).
+vtt, srt, tsv and json (or the one `--output_format`). After each file (and
+after the batch) the cumulative per-graph report of profiling.py is
+printed; `--profile_sync True` makes its spans wait for the card.
 """
 
 import argparse
@@ -18,6 +20,7 @@ from timeit import default_timer as timer
 import numpy as np
 import torch
 
+from . import profiling
 from .tokenizer import LANGUAGES, TO_LANGUAGE_CODE
 from .utils import get_writer, optional_float, optional_int, str2bool
 
@@ -52,6 +55,7 @@ def cli():
     parser.add_argument("--weights", type=str, default="bf16", choices=["bf16", "int8"], help="decode-loop weight storage: int8 decodes with weight-only quantized weights (not held token-equal to bf16)")
     parser.add_argument("--draft_model", type=str, default=None, help="optional draft model for speculative greedy decoding (it must share the model's vocabulary and n_mels); the tokens are those of plain greedy")
     parser.add_argument("--draft_k", type=int, default=4, help="tokens drafted per speculative round (with --draft_model)")
+    parser.add_argument("--profile_sync", type=str2bool, default=False, help="make the per-graph timing report's spans wait for the card (device time, at a wait per graph)")
 
     parser.add_argument("--task", type=str, default="transcribe", choices=["transcribe", "translate"], help="transcribe (X->X) or translate (X->English)")
     parser.add_argument("--language", type=str, default=None, choices=sorted(LANGUAGES.keys()) + sorted([k.title() for k in TO_LANGUAGE_CODE.keys()]), help="language spoken in the audio; None performs language detection")
@@ -93,6 +97,7 @@ def cli():
     weights: str = args.pop("weights")
     draft_name: str = args.pop("draft_model")
     draft_k: int = args.pop("draft_k")
+    profiling.set_sync(args.pop("profile_sync"))
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -146,6 +151,7 @@ def cli():
         start = timer()
         results = transcribe_batch(model, audio_paths, temperature=temperature, **batch_args)
         print(f"transcribe_batch() of {len(audio_paths)} files took {timer() - start: .3f}s")
+        profiling.print_report()
         for audio_path, result in zip(audio_paths, results):
             writer(result, audio_path, **writer_args)
         return
@@ -156,6 +162,7 @@ def cli():
             result = model.transcribe(audio_path, temperature=temperature, **args)
             print("---------------------------")
             print(f"transcribe() took {timer() - start: .3f}s")
+            profiling.print_report()
             writer(result, audio_path, **writer_args)
         except Exception:
             traceback.print_exc()

@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import quant
+from . import profiling, quant
 from .models import graphs
 from .ops.beam_kernel import apply_filters, beam_update, build_penalty_vectors, greedy_argmax
 
@@ -79,6 +79,7 @@ class FusedEngine:
         """One sampled token id per row of `probs` (B, V)."""
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
+    @profiling.timed("fused_decode")
     @torch.inference_mode()
     def run(
         self,

@@ -65,14 +65,15 @@ def batched_mel_windows(mels: torch.Tensor, seeks: List[int], segment_sizes: Lis
 def encode_clip(model, audio: np.ndarray):
     """A host waveform -> (cK, cV, n_windows): the clip's mel on the model's
     device, its contiguous 30 s windows stacked on the audio axis, the
-    encoder and the cross-K/V, (L, n_windows, H, dh, 1500) each."""
+    encoder and the cross-K/V, (L, n_windows, H, dh, 1500) each. Untimed:
+    no profiling span, as the JAX frontend records none."""
     audio = np.asarray(audio, dtype=np.float32)
     n_windows = max(1, -(-audio.shape[-1] // N_SAMPLES))
     packed = pack_audio(audio, (n_windows + 1) * N_SAMPLES)
     n_mels = model.dims.n_mels
     mel = log_mel_spectrogram_torch(torch.from_numpy(packed).to(model.device), n_mels)
     windows = mel[:, : n_windows * N_FRAMES].reshape(n_mels, n_windows, N_FRAMES).transpose(0, 1)
-    ck, cv = model.cross_kv(model.encode(windows))
+    ck, cv = model.cross_kv_untimed(model.encode_untimed(windows))
     return ck, cv, n_windows
 
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import profiling
 from . import graphs
 from .dims import ModelDimensions
 from .params import cast_params, flatten_tree, init_random_params
@@ -78,14 +79,26 @@ class Whisper(nn.Module):
     @torch.inference_mode()
     def encode(self, mel) -> torch.Tensor:
         """mel: (B, n_mels, 3000) -> audio features (B, 1500, d)."""
-        mel = torch.as_tensor(mel, device=self.device)
-        fn = self._mesh_pick(self._encode_plain, self._encode_sharded, mel.shape[0])
-        return fn(mel)
+        with profiling.timed("encoder"):
+            return profiling.maybe_block(self.encode_untimed(mel))
 
     @torch.inference_mode()
     def cross_kv(self, xa):
-        fn = self._mesh_pick(self._cross_kv_plain, self._cross_kv_sharded, xa.shape[0])
-        return fn(xa)
+        with profiling.timed("cross_kv"):
+            return profiling.maybe_block(self.cross_kv_untimed(xa))
+
+    # The untimed forms serve the callers whose JAX counterparts record no
+    # span: frontend.encode_clip (the JAX frontend runs the graphs inside its
+    # own jit) and the word-timestamp replay's cross-K/V (the JAX package
+    # reuses the decode's, keep_cross_kv).
+    @torch.inference_mode()
+    def encode_untimed(self, mel) -> torch.Tensor:
+        mel = torch.as_tensor(mel, device=self.device)
+        return self._mesh_pick(self._encode_plain, self._encode_sharded, mel.shape[0])(mel)
+
+    @torch.inference_mode()
+    def cross_kv_untimed(self, xa):
+        return self._mesh_pick(self._cross_kv_plain, self._cross_kv_sharded, xa.shape[0])(xa)
 
     def _encode_plain(self, mel):
         return graphs.encode(self.params["encoder"], mel, n_head=self.dims.n_audio_head)
@@ -95,9 +108,10 @@ class Whisper(nn.Module):
 
     @torch.inference_mode()
     def encode_with_cross_kv(self, mel):
-        """mel (B, n_mels, 3000) -> (xa, cK, cV)."""
-        xa = self.encode(mel)
-        ck, cv = self.cross_kv(xa)
+        """mel (B, n_mels, 3000) -> (xa, cK, cV), timed as one "encoder" span."""
+        with profiling.timed("encoder"):
+            xa = self.encode_untimed(mel)
+            ck, cv = profiling.maybe_block(self.cross_kv_untimed(xa))
         return xa, ck, cv
 
     @torch.inference_mode()
@@ -109,19 +123,25 @@ class Whisper(nn.Module):
                 f"initial token length {tokens.shape[1]} exceeds prefill window "
                 f"{graphs.PREFILL_LEN}"
             )
-        return graphs.prefill(
-            self.params["decoder"], tokens, n_valid, ck, cv, n_head=self.dims.n_text_head
-        )
+        with profiling.timed("prefill"):
+            hidden, kv = graphs.prefill(
+                self.params["decoder"], tokens, n_valid, ck, cv, n_head=self.dims.n_text_head
+            )
+            profiling.maybe_block(kv)
+        return hidden, kv
 
     @torch.inference_mode()
     def decode_step(self, tokens, pos, cache, src, ck, cv):
         tokens = torch.as_tensor(tokens, device=self.device)
         if src is not None:
             src = torch.as_tensor(src, device=self.device)
-        return graphs.decode_step(
-            self.params["decoder"], tokens, pos, cache, src, ck, cv,
-            n_head=self.dims.n_text_head,
-        )  # fmt: skip
+        with profiling.timed("decode_step"):
+            logits, cache = graphs.decode_step(
+                self.params["decoder"], tokens, pos, cache, src, ck, cv,
+                n_head=self.dims.n_text_head,
+            )  # fmt: skip
+            profiling.maybe_block(logits)
+        return logits, cache
 
     @torch.inference_mode()
     def alignment_replay(

@@ -4,8 +4,9 @@ conversions (the counterpart of whisper_tpu/runtime/native.py).
 
 The library is built with g++ from the repository's runtime/audioio.cpp into
 the port's own build directory (whisper_tpu_torch/_build/) at first use. A
-failure raises; there is no ffmpeg fallback and no numpy stand-in when the
-library cannot be built or loaded.
+failure raises; there is no numpy stand-in when the library cannot be built
+or loaded (audio.load_audio tries ffmpeg for containers the decoder cannot
+read).
 """
 
 import ctypes

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import quant
+from . import profiling, quant
 from .engine import HISTORY_RUNS, model_engine
 from .models import graphs
 from .ops.beam_kernel import greedy_argmax
@@ -83,6 +83,7 @@ class SpeculativeEngine:
         )  # fmt: skip
         return hidden, m.kv_to_cache_grouped(kv, 1)
 
+    @profiling.timed("fused_decode_spec")
     @torch.inference_mode()
     def run(
         self,

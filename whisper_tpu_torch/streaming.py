@@ -211,7 +211,7 @@ class StreamingTranscriber:
     def _align_words(self, segments: List[dict], result: DecodingResult, segment_size: int) -> None:
         """Words for this window's segments, by transcribe()'s replay over
         the window's cross-K/V, computed again from its audio features."""
-        ck, cv = self.model.cross_kv(result.audio_features[None])
+        ck, cv = self.model.cross_kv_untimed(result.audio_features[None])
         add_word_timestamps(
             segments=segments,
             model=self.model,

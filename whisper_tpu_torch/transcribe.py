@@ -403,7 +403,7 @@ def transcribe(
 
         if word_timestamps:
             # the replay attends to the window's audio features
-            ck, cv = model.cross_kv(result.audio_features[None])
+            ck, cv = model.cross_kv_untimed(result.audio_features[None])
             add_word_timestamps(
                 segments=window_segments,
                 model=model,
