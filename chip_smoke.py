@@ -37,7 +37,11 @@ Phases (any failure raises and the script exits non-zero):
      distinct lengths with one at sample_begin, timestamp rules on and off,
      chunk-edge ties, offset views, 1,000 back-to-back launches; its device
      ms beside the scalar launch's at B = 1, 2, 5 and 20 (at B = 1 on the
-     same inputs). Time kernel and
+     same inputs). The update kernels' loop-state launches (the captured
+     loop's: lengths, step and live read from a device array) on every
+     scalar case and offset case, at live = 0 (nothing written: outputs
+     and pools as they were), 1,000 back-to-back launches, and their
+     device ms beside the scalar launch's on the same inputs. Time kernel and
      plain version on the device (the profiler's kernel records) and per
      call with the host's work (CUDA events, median of the calls); time
      `unfold(...).median(-1)` beside the median filter, the empty kernel at
@@ -46,8 +50,9 @@ Phases (any failure raises and the script exits non-zero):
   3. check that the graphs' float32 products of bf16 operands (logits,
      attention scores) are summed in float32 on the card and not rounded
      to bf16 (within 1e-4 of the float64 product);
-  4. decode greedy and beam 5 at tiny dims in float32 on the card and on
-     the CPU with the same seeded weights, with the model's weights and
+  4. decode greedy and beam 5 at tiny dims in float32 on the card (the
+     engine's captured loop) and on the CPU (the same body, eagerly) with
+     the same seeded weights, with the model's weights and
      with int8 weights: equal tokens, avg_logprob within 1e-3; transcribe() jfk with word timestamps on both: equal words,
      times within 1e-6 s; and jfk, 8 s of silence, jfk twice with
      hallucination_silence_threshold=2.0: each window's segments and words
@@ -56,6 +61,18 @@ Phases (any failure raises and the script exits non-zero):
      noise, whose second round has two prompts, on the engine (one call per
      prompt) and on the host loop (use_fused_decode off): the same loops and
      equal tokens on the card and the CPU, and on both loops;
+  4b. the decode loop as a captured program (engine.py): one turbo window
+     at greedy T = 0, beam 5 and a T = 0.7 draw (seed 7) through the
+     captured loop, the same body uncaptured and the eager host loop: the
+     captured tokens (and draws) equal the uncaptured body's, launches
+     equal each run's record; per step the wall, device-busy, idle share,
+     kernels, the update's device ms; replays, done reads, captures and
+     their seconds, peak memory; the update launches in each profiled
+     run's trace equal its record and the kernels' counters;
+  4c. the done read's lag (engine.DONE_LAG) at 0, 1, 2, 4, 8 and 16 on
+     a greedy turbo window that ends early (a seeded suppression set) and
+     on a whole one: wall, replays after every row was done, done reads;
+     outputs equal at every lag;
   5. transcribe() a 60 s clip (tests/data/jfk.flac tiled) at turbo width
      with seeded random bf16 weights: greedy with the default temperature
      ladder, beam 5 at temperature 0, greedy at temperature 0 with word
@@ -206,8 +223,14 @@ Phases (any failure raises and the script exits non-zero):
      with each graph's cached flag, printed). The runner's update launches
      (once a T = 0 step, counted where it calls the C ABI) count on the
      main path;
-  7. print the kernels line, the card's name and power limit, and the
-     result line {"ok": true, "device": {...}}.
+  7. print the engines' captures in this process and their seconds, the
+     kernels line, the card's name and power limit, and the result line
+     {"ok": true, "device": {...}}.
+Every launch check holds the update kernels' counts to what the engines'
+records say they launched (engine_want): a captured loop's step 0
+scalar, each replay and uncaptured pass at the loop state; the mesh's
+eager loop once a step. The loop-state launches are counted on the card
+by the kernels themselves (a replay makes no Python call).
 Exits non-zero, printing no result, where CUDA is not available.
 """
 
@@ -247,6 +270,7 @@ from whisper_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from whisper_tpu_torch.ops import dtw, median  # noqa: E402
 from whisper_tpu_torch.quant import DECODER_QUANT_KEYS, quantize_cross_kv, quantize_decoder  # noqa: E402
 from whisper_tpu_torch.speculative import SpeculativeEngine  # noqa: E402
+from smoke.trace_stats import busy_between_updates  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -320,12 +344,17 @@ def device_ms(fn, reps=REPS, kernel=None, attempts=3):
 def kernel_ms(fn, wrapper, name, reps=REPS, counter="launches"):
     """Device ms per launch of the kernel `name`: the mean of the profiler's
     records of it (the profiler may drop a few records of a short kernel),
-    after checking on the wrapper's count (`counter`) that each call
-    launches it once."""
-    before = getattr(wrapper, counter)
+    after checking on the wrapper's count (`counter`, the name of its
+    attribute, or of a loop-state kernel's count on the card in
+    bk.state_launches()) that each call launches it once."""
+
+    def count():
+        return bk.state_launches()[counter] if counter.endswith("_state") else getattr(wrapper, counter)
+
+    before = count()
     fn()
-    if getattr(wrapper, counter) != before + 1:
-        raise AssertionError(f"{name}: {getattr(wrapper, counter) - before} launches per call")
+    if count() != before + 1:
+        raise AssertionError(f"{name}: {count() - before} launches per call")
     per_call_ms, per_call = device_ms(fn, reps, kernel=name)
     if not 0 < per_call <= 1:
         raise AssertionError(f"{name}: the profiler saw {per_call} launches per call")
@@ -570,6 +599,65 @@ def check_greedy():
     )  # fmt: skip
 
 
+def loop_state(n_tokens, sample_begin, step, live=1):
+    """The decode loop's state array on the card (ops/beam_kernel.py)."""
+    return torch.tensor([n_tokens, sample_begin, step, live], dtype=torch.int32, device=DEV)
+
+
+def greedy_state_call(args, kw, step=1, live=1):
+    """The loop-state launch on a scalar case's inputs, into fresh outputs
+    holding sentinels (-1, 7.0)."""
+    logits, tokens, n_tokens, sample_begin, sup, beg = args
+    B = logits.shape[0]
+    outs = (torch.full((B,), -1, dtype=torch.int32, device=DEV), torch.full((B,), 7.0, device=DEV))
+    state = loop_state(n_tokens, sample_begin, step, live)
+    return bk.greedy_argmax_state(logits, tokens, state, sup, beg, *outs, **kw)
+
+
+def check_greedy_state():
+    """The loop-state launch (wtt_greedy_argmax_state, the captured loop's)
+    on every case and offset case of check_greedy, with its lengths read
+    from the state array; at live = 0 on the first cases, which must leave
+    the outputs as they were; 1,000 back-to-back launches alternating two
+    inputs; then the timings at the main path's shape beside the scalar
+    launch on the same inputs."""
+    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+    for seed, case in enumerate(GREEDY_CASES):
+        args, kw = greedy_case(seed, *case, C)
+        err = max(err, same_greedy(args, kw, greedy_state_call(args, kw), f"state {case}, C={C}"))
+        if seed < 8:
+            tok, lp = greedy_state_call(args, kw, live=0)
+            torch.cuda.synchronize()
+            if not ((tok == -1).all() and (lp == 7.0).all()):
+                raise AssertionError(f"greedy_argmax_state wrote at live = 0 ({case})")
+    for seed, (*case, which) in enumerate(GREEDY_OFFSET_CASES, 50):
+        args, kw = greedy_case(seed, *case, C, W=1)
+        args = offset_inputs(args, which, 0, 4)
+        what = f"state {case}, {which} offset, C={C}"
+        err = max(err, same_greedy(args, kw, greedy_state_call(args, kw), what))
+    x = greedy_case(101, 5, 14, True, "randn", C)
+    y = greedy_case(102, 5, 14, True, "edge_ties", C)
+    for _ in range(500):
+        out_x = greedy_state_call(*x)
+        out_y = greedy_state_call(*y)
+    err = max(err, same_greedy(*x, out_x, "state launch 999"), same_greedy(*y, out_y, "state launch 1000"))
+    args, kw = greedy_case(99, 1, 60, True, "randn", C)
+    logits, tokens, n_tokens, sample_begin, sup, beg = args
+    state = loop_state(n_tokens, sample_begin, 40)
+    outs = (torch.empty(1, dtype=torch.int32, device=DEV), torch.empty(1, device=DEV))
+    n_hist = 60 - SAMPLE_BEGIN + 2
+    # logits, suppress, history, state (n_tokens != sample_begin: no begin
+    # vector); tok + lp and the launch counter
+    nbytes = 4 * (V + V + n_hist) + 16 + 8 + 8
+    out = timings(
+        lambda: bk.greedy_argmax_state(logits, tokens, state, sup, beg, *outs, **kw),
+        lambda: bk.greedy_argmax_plain(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
+        err, nbytes, C, lambda: torch.topk(logits, 1, dim=-1), counter="greedy_argmax_state",
+    )  # fmt: skip
+    out["scalar_ms"] = kernel_ms(lambda: bk.greedy_argmax(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel")
+    return out
+
+
 # (audios A, draft width K, use_ts, mode): A * (K + 1) rows, the verify
 # pass's layout (each audio's history repeated over its K + 1 positions at
 # lengths n[a] + j); A = 1, 2 and 4 give the main path's B = 5, 10 and 20
@@ -742,7 +830,8 @@ def empty_ms(grid, cluster):
     return per_call_ms / per_call
 
 
-def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes, cluster, topk_fn):
+def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes, cluster, topk_fn,
+            counter="launches"):  # fmt: skip
     """Device ms (profiler) and ms per call (CUDA events) of the kernel,
     which launches clusters of `cluster` CTAs, with the empty kernel's
     device ms at the same launch shape and at one CTA, `topk_fn`
@@ -751,7 +840,7 @@ def timings(kernel_fn, plain_fn, wrapper, kernel_name, err, nbytes, cluster, top
     plain_ms, plain_kernels = device_ms(plain_fn)
     topk_ms, topk_kernels = device_ms(topk_fn)
     return dict(
-        max_abs_err=err, ms=kernel_ms(kernel_fn, wrapper, kernel_name),
+        max_abs_err=err, ms=kernel_ms(kernel_fn, wrapper, kernel_name, counter=counter),
         call_ms=call_ms(kernel_fn), cluster=cluster, plain_ms=plain_ms,
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, plain_call_ms=call_ms(plain_fn),
         plain_kernels_per_call=plain_kernels, bytes=nbytes, library_ms=topk_ms,
@@ -907,6 +996,77 @@ def check_beam():
         bk.beam_update, "beam_update_kernel", err, nbytes, G * C,
         lambda: torch.topk(head[0], G + 1, dim=-1),
     )  # fmt: skip
+
+
+def beam_state_call(case, kpool, live=1):
+    """The loop-state launch on a scalar case's inputs and the pools
+    `kpool`, into fresh outputs holding sentinels (-1, -1, 7.0)."""
+    head, _, tail, kw = case
+    n_tokens, sample_begin, step, sup, beg = tail
+    B = head[0].shape[0]
+    outs = (
+        torch.full_like(head[1], -1), torch.full((B,), -1, dtype=torch.int32, device=DEV),
+        torch.full((B,), 7.0, device=DEV),
+    )  # fmt: skip
+    state = loop_state(n_tokens, sample_begin, step, live)
+    return bk.beam_update_state(*head, *kpool, state, sup, beg, *outs, **kw)
+
+
+def check_beam_state():
+    """The loop-state launch (wtt_beam_update_state) on every case and
+    offset case of check_beam, n_tokens, sample_begin and step read from the
+    state array; at live = 0 on every case, which must leave the pools and
+    the outputs as they were; 1,000 back-to-back launches alternating two
+    inputs; then the timings at the main path's shape beside the scalar
+    launch on the same inputs."""
+    err = 0.0
+    cases = [(*c, None) for c in BEAM_CASES] + BEAM_OFFSET_CASES
+    for seed, (A, G, n_tokens, step, use_ts, mode, fcount, which) in enumerate(cases):
+        C = bk.cluster_sizes(G, V)[1] // G
+        W = 1 if which else 2
+        head, pool, tail, kw = beam_case(seed, A, G, n_tokens, step, use_ts, mode, fcount, C, W=W)
+        if which:
+            args = offset_inputs(head + tail, which, 0, 6)
+            head, tail = args[:3], args[3:]
+        case = (head, pool, tail, kw)
+        what = f"state {mode}, A={A}, G={G}, n_tokens={n_tokens}, step={step}, C={C}, offset={which}"
+        kpool = [p.clone() for p in pool]
+        err = max(err, same_beam(case, beam_state_call(case, kpool), kpool, what))
+        if mode in ("eot", "ties") and step > 0 and int(kpool[3].sum()) <= fcount * A:
+            raise AssertionError(f"the EOT case put nothing into the pools ({what})")
+        kpool = [p.clone() for p in pool]
+        new_tokens, src, new_lp = beam_state_call(case, kpool, live=0)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(kpool, pool)) and (new_tokens == -1).all()
+                and (src == -1).all() and (new_lp == 7.0).all()):  # fmt: skip
+            raise AssertionError(f"beam_update_state wrote at live = 0 ({what})")
+    C = bk.cluster_sizes(5, V)[1] // 5
+    x = beam_case(101, 3, 5, 14, 7, True, "randn", 0, C)
+    y = beam_case(102, 3, 5, 14, 7, True, "edge_ties", 0, C)
+    for case in (x, y):
+        case[0][0][:, EOT] = float("-inf")  # no EOT candidate: the pools stay
+    kx, ky = [p.clone() for p in x[1]], [p.clone() for p in y[1]]
+    for _ in range(500):
+        out_x = beam_state_call(x, kx)
+        out_y = beam_state_call(y, ky)
+    err = max(err, same_beam(x, out_x, kx, "state launch 999"), same_beam(y, out_y, ky, "state launch 1000"))
+    head, pool, tail, kw = beam_case(99, 1, 5, 60, 40, True, "randn", 0, C)
+    G = 5
+    n_tokens, sample_begin, step, sup, beg = tail
+    state = loop_state(n_tokens, sample_begin, step)
+    outs = (torch.empty_like(head[1]), torch.empty(G, dtype=torch.int32, device=DEV),
+            torch.empty(G, device=DEV))  # fmt: skip
+    # logits, suppress, sum_lp, state (n_tokens != sample_begin: no begin
+    # vector), the source rows read and the new rows written, the launch counter
+    nbytes = 4 * (G * V + V + G + 2 * G * T) + 16 + 8 * G + 4 + 8
+    out = timings(
+        lambda: bk.beam_update_state(*head, *pool, state, sup, beg, *outs, **kw),
+        lambda: bk.beam_update_plain(*head, *pool, *tail, **kw),
+        bk.beam_update, "beam_update_kernel", err, nbytes, G * C,
+        lambda: torch.topk(head[0], G + 1, dim=-1), counter="beam_update_state",
+    )  # fmt: skip
+    out["scalar_ms"] = kernel_ms(lambda: bk.beam_update(*head, *pool, *tail, **kw), bk.beam_update, "beam_update_kernel")
+    return out
 
 
 def check_odd_vocab():
@@ -1350,18 +1510,26 @@ def watch_loops():
     (the engine) or "host" (the host loop), its rows (audios x group), its
     group, whether it is a beam search, its temperature, its steps (tokens
     per row) and its host-clock seconds, which end in the loop's own reads
-    of the device. The methods are restored on exit."""
+    of the device, and the engine's record of the run (`run`, an EngineRun;
+    None for the host loop). The methods are restored on exit."""
     fused, host = DecodingTask._main_loop_fused, DecodingTask._main_loop_host
     loops = []
 
+    def latest(model):
+        engine = getattr(model, "_fused_engine", None)
+        return engine.history[-1] if engine is not None and engine.history else None
+
     def watched(run, kind):
         def call(self, tokens):
+            before = latest(self.model)
             t0 = time.perf_counter()
             out = run(self, tokens)
+            after = latest(self.model)
             loops.append(dict(
                 kind=kind, rows=tokens.shape[0], group=self.n_group,
                 beam=self.options.beam_size is not None, temperature=self.options.temperature,
                 steps=out[0].shape[1] - tokens.shape[1], seconds=time.perf_counter() - t0,
+                run=after if after is not before else None,  # the engine's record of it
             ))  # fmt: skip
             return out
 
@@ -1373,6 +1541,29 @@ def watch_loops():
         yield loops
     finally:
         DecodingTask._main_loop_fused, DecodingTask._main_loop_host = fused, host
+
+
+@contextlib.contextmanager
+def watch_captures():
+    """Within the block, count the engines' graph captures in this process
+    and their seconds (FusedEngine._capture, the warm-up included).
+    Restored on exit."""
+    capture = FusedEngine._capture
+    seen = dict(captures=0, seconds=0.0)
+
+    def watched(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return capture(self, *args, **kw)
+        finally:
+            seen["captures"] += 1
+            seen["seconds"] += time.perf_counter() - t0
+
+    FusedEngine._capture = watched
+    try:
+        yield seen
+    finally:
+        FusedEngine._capture = capture
 
 
 @contextlib.contextmanager
@@ -1403,15 +1594,59 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Each kernel's launches since the last reset: greedy_argmax's scalar
-    launches and its per-row-length ones (the speculative engine's draft
-    steps and verify passes) apart."""
+    """Each kernel's launches since the last reset: the update kernels'
+    scalar launches (step 0 of a captured loop, every step of the mesh's
+    eager loop), their loop-state launches (a captured loop's replays and
+    its uncaptured passes, counted on the card by the kernels themselves:
+    a replay makes no Python call) and the greedy kernel's per-row-length
+    ones (the speculative engine's draft steps and verify passes) apart."""
+    state = bk.state_launches()
     return {
         "greedy_argmax": bk.greedy_argmax.launches,
         "greedy_argmax_rows": bk.greedy_argmax.row_launches,
-        "beam_update": bk.beam_update.launches, "dtw_trace": dtw.dtw_trace.launches,
+        "greedy_argmax_state": state["greedy_argmax_state"],
+        "beam_update": bk.beam_update.launches,
+        "beam_update_state": state["beam_update_state"], "dtw_trace": dtw.dtw_trace.launches,
         "median_filter": median.median_filter.launches,
     }  # fmt: skip
+
+
+def traced_launches(name, span, run, counts=None):
+    """The update kernel's launches in a profiled engine run (the trace's
+    events of it, busy_between_updates: steps + 1) against what the run's
+    record says it made (engine_want: step 0, then one a replay or
+    uncaptured pass) and, given, the counts read after the run."""
+    want = engine_want([run])
+    made = sum(want.values())
+    if span["steps"] + 1 != made or (counts is not None and counts != want):
+        raise AssertionError(
+            f"{name}: the trace holds {span['steps'] + 1} update launches, the counters "
+            f"{counts}, the record {want} ({run})"
+        )
+
+
+def engine_want(runs, aligned=0, spec=()):
+    """The launches that engine runs (`EngineRun` records of
+    FusedEngine.history), speculative runs (SpeculativeEngine.history) and
+    `aligned` word-timing windows make: a captured loop's update launches
+    once at step 0 (scalar) and once per replay and uncaptured pass (loop
+    state: its capture warm-ups too); the eager loop once per step; a
+    speculative run once at step 0 and once per draft step and verify
+    round (per-row)."""
+    want = dict.fromkeys(launch_counts(), 0)
+    want["dtw_trace"] = want["median_filter"] = aligned
+    for r in runs:
+        kind = "beam_update" if r.beam_search else "greedy_argmax" if r.temperature == 0 else None
+        if kind is None:
+            continue
+        if r.loop == "eager":
+            want[kind] += r.steps
+        else:
+            want[kind] += 1
+            want[kind + "_state"] += r.replays + r.bodies
+    want["greedy_argmax"] += len(spec)
+    want["greedy_argmax_rows"] += sum(r[1] + r[2] for r in spec)
+    return want
 
 
 def check_words(segs, audio_s):
@@ -1436,11 +1671,12 @@ def check_words(segs, audio_s):
 
 def main_path(model, audio, draft=None, **kw):
     """transcribe() of `audio` (with `draft` installed, if given), the counts
-    set to 0 just before it: the scalar greedy and the beam launches equal
-    the plain engine's temperature-0 updates, plus step 0 of each
-    speculative run; the per-row greedy launches equal the speculative
-    runs' draft steps and verify rounds; the word-timing kernels launch
-    once per aligned window. Returns (stats, launches, the result)."""
+    set to 0 just before it: the update kernels' launches equal what the
+    engines' records say they made (engine_want: step 0 of each
+    temperature-0 run and of each speculative run scalar, each replay and
+    uncaptured pass at the loop state, the speculative runs' draft steps
+    and verify rounds per-row); the word-timing kernels launch once per
+    aligned window. Returns (stats, launches, the result)."""
     if model._fused_engine is not None:
         model._fused_engine.history.clear()
     model.set_draft_model(draft)
@@ -1457,15 +1693,11 @@ def main_path(model, audio, draft=None, **kw):
         model.set_draft_model(None)
     launches = launch_counts()
     runs = list(model._fused_engine.history) if model._fused_engine is not None else []
-    t0_greedy = sum(r[2] for r in runs if not r[0] and r[1] == 0.0)
-    t0_beam = sum(r[2] for r in runs if r[0] and r[1] == 0.0)
     aligned = sum(r["aligned"] for r in replays)
     replay_s = sum(r["seconds"] for r in replays)
-    want = {"greedy_argmax": t0_greedy + len(spec),
-            "greedy_argmax_rows": sum(r[1] + r[2] for r in spec), "beam_update": t0_beam,
-            "dtw_trace": aligned, "median_filter": aligned}  # fmt: skip
+    want = engine_want(runs, aligned, spec)
     if launches != want:
-        raise AssertionError(f"launches {launches} != T=0 updates and aligned windows {want}")
+        raise AssertionError(f"launches {launches} != the engine's record and aligned windows {want}")
     if draft is not None and not spec:
         raise AssertionError("the run with a draft never reached the speculative engine")
     segs = result["segments"]
@@ -1478,6 +1710,9 @@ def main_path(model, audio, draft=None, **kw):
     steps = sum(r[2] for r in runs) + sum(r[3] for r in spec)
     decode_s = sum(r[3] for r in runs) + sum(r[4] for r in spec)
     stats = dict(
+        replays=sum(r.replays for r in runs), captures=sum(r.captures for r in runs),
+        capture_s=sum(r.capture_s for r in runs), done_reads=sum(r.done_reads for r in runs),
+        programs=program_stats(runs),
         wall_s=wall,
         rtfx=len(audio) / 16000 / wall,
         windows_decoded=len(runs) + len(spec),
@@ -1556,12 +1791,23 @@ def loop_stats(loops, kind):
     )  # fmt: skip
 
 
+def program_stats(runs):
+    """Of engine runs' records: the static-buffer keys they used (audios,
+    group, pool size, last window), their captures, and the re-captures
+    among them (graphs made again after the engine dropped their buffers,
+    past engine.MAX_PROGRAMS)."""
+    mine = [r for r in runs if r.loop == "program"]
+    return dict(
+        keys=len({r.program for r in mine}), captures=sum(r.captures for r in mine),
+        recaptures=sum(r.recaptures for r in mine),
+    )  # fmt: skip
+
+
 def batch_run(name, fn, audio_s, replays_of="whisper_tpu_torch.batch"):
     """One multi-stream run with the counts set to 0 just before it and read
-    just after: the update kernels launch once per step of each fused
-    temperature-0 loop, the word-timing kernels once per aligned window
-    (the replays of `replays_of`). Every loop
-    must be the engine's."""
+    just after: the update kernels launch as the engine's records of its
+    runs say (engine_want), the word-timing kernels once per aligned window
+    (the replays of `replays_of`). Every loop must be the engine's."""
     reset_launch_counts()
     torch.cuda.synchronize()
     with watch_loops() as loops, watch_rounds() as rounds, watch_replays(replays_of) as replays:
@@ -1570,20 +1816,17 @@ def batch_run(name, fn, audio_s, replays_of="whisper_tpu_torch.batch"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = launch_counts()
-    fused_t0 = [lp for lp in loops if lp["kind"] == "fused" and lp["temperature"] == 0.0]
     aligned = sum(r["aligned"] for r in replays)
-    want = {
-        "greedy_argmax": sum(lp["steps"] for lp in fused_t0 if not lp["beam"]),
-        "greedy_argmax_rows": 0,
-        "beam_update": sum(lp["steps"] for lp in fused_t0 if lp["beam"]),
-        "dtw_trace": aligned, "median_filter": aligned,
-    }  # fmt: skip
+    if any(lp["kind"] == "fused" and lp["run"] is None for lp in loops):
+        raise AssertionError(f"{name}: an engine loop left no record: {loops}")
+    want = engine_want([lp["run"] for lp in loops if lp["run"] is not None], aligned)
     if launches != want:
-        raise AssertionError(f"{name}: launches {launches} != fused T=0 steps and aligned windows {want}")
+        raise AssertionError(f"{name}: launches {launches} != the engine's record and aligned windows {want}")
     if any(lp["kind"] != "fused" for lp in loops):
         raise AssertionError(f"{name}: a loop left the engine: {loops}")
     stats = dict(
         wall_s=wall, audio_s=audio_s, rtfx=audio_s / wall, fused=loop_stats(loops, "fused"),
+        programs=program_stats([lp["run"] for lp in loops if lp["run"] is not None]),
         loops=[f"{lp['kind']}:{lp['rows']}" for lp in loops],
         rounds=[f"{r['rows']}x{r['groups']}@{r['temperature']}" for r in rounds],
     )  # fmt: skip
@@ -2414,8 +2657,8 @@ def spec_bracket(model, draft, window, only_token=None, k=4, reps=2):
         s_out, s_wall = timed(lambda: spec.run(*args, dck, dcv, **kw))
         counts = launch_counts()
         launches, draft_steps, rounds, decoded, _ = spec.history[-1]
-        want = dict(greedy_argmax=1, greedy_argmax_rows=draft_steps + rounds, beam_update=0,
-                    dtw_trace=0, median_filter=0)  # fmt: skip
+        want = dict(dict.fromkeys(launch_counts(), 0), greedy_argmax=1,
+                    greedy_argmax_rows=draft_steps + rounds)  # fmt: skip
         if counts != want or launches != 1 + draft_steps + rounds:
             raise AssertionError(f"speculative run: launches {counts} != {want}")
         p_walls.append(p_wall)
@@ -2759,6 +3002,181 @@ def with_draft(model, draft, fn):
 PROFILE_STEPS = 48  # the profiled window's sample_len: reading a 224-step trace was most of the profiles' time
 
 
+LOOP_VARIANTS = ("captured", "body", "eager")
+LOOP_PROFILE_STEPS = 24  # the captured-loop phase's profiled steps (nine profiles)
+
+
+def loop_engine(model, variant):
+    """A fresh engine of the model running the loop as `variant`:
+    "captured" (the body replayed from its graphs), "body" (the same body
+    run eagerly on the card) or "eager" (the host loop the mesh's engine
+    keeps, a host read of `completed` each step)."""
+    engine = FusedEngine(model)
+    engine.capture = variant == "captured"
+    engine.eager_loop = variant == "eager"
+    return engine
+
+
+def captured_loop_phase(model, audio, card):
+    """One turbo window of the engine (the arguments decode() gives it on
+    the clip's first window) at greedy T = 0, beam 5 and a T = 0.7 draw
+    (seed 7), through each LOOP_VARIANTS engine. The captured loop's
+    outputs must equal the uncaptured body's, token for token at every step
+    (and its draws on the same seed); the launch counts of each first run
+    must equal its record (engine_want). Per variant: the first run's wall
+    and record (captures, capture s, replays, uncaptured passes, done
+    reads), peak memory, wall ms per step over two later runs; from a
+    profiled run of LOOP_PROFILE_STEPS steps (its graphs captured beforehand),
+    device-busy ms per step, idle share against the wall, kernels per step
+    and the update kernel's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window = first_window(model, audio)
+    out = {}
+    for name, opts in [
+        ("greedy", dict(temperature=0.0)), ("beam5", dict(beam_size=5, temperature=0.0)),
+        ("sampled", dict(temperature=0.7)),
+    ]:  # fmt: skip
+        (args, kw), _ = engine_call(model, window, DecodingOptions(language="en", **opts))
+        kw = dict(kw, rng_seed=7)
+        short = dict(kw, sample_len=LOOP_PROFILE_STEPS)
+        # a kernel once a step: the update, or the draw's argmax (ArgMaxOps)
+        update = {"greedy": "greedy_argmax_kernel", "beam5": "beam_update_kernel"}.get(name, "argmax")
+        results, outs = {}, {}
+        for variant in LOOP_VARIANTS:
+            engine = loop_engine(model, variant)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            first, first_s = timed(lambda: engine.run(*args, **kw))
+            record = engine.history[-1]
+            counts = launch_counts()
+            if counts != engine_want([record]):
+                raise AssertionError(f"{name} {variant}: launches {counts} != its record {record}")
+            peak = torch.cuda.max_memory_allocated()
+            walls = []
+            for _ in range(2):
+                again, _ = timed(lambda: engine.run(*args, **kw))
+                if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"{name} {variant}: two runs of one window differ")
+                walls.append(engine.history[-1].seconds / engine.history[-1].steps * 1e3)
+            engine.run(*args, **short)  # its graphs, if any, before the profile
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine.run(*args, **short)
+                torch.cuda.synchronize()
+            span = busy_between_updates(prof, update)
+            n = span["steps"]
+            if name != "sampled":
+                traced_launches(name, span, engine.history[-1], launch_counts())
+            wall = statistics.median(walls)
+            busy = span["busy_us"] / n / 1e3
+            results[variant] = dict(
+                first_run_s=first_s, steps=record.steps, replays=record.replays,
+                bodies=record.bodies, captures=record.captures, capture_s=record.capture_s,
+                done_reads=record.done_reads, peak_bytes=peak, launches=counts,
+                wall_ms_per_step=wall, wall_ms_per_step_runs=walls,
+                device_busy_ms_per_step=busy, device_idle_share=1 - busy / wall,
+                kernels_per_step=span["kernels"] / n, update_device_ms=span["update_us"] / 1e3,
+            )  # fmt: skip
+            outs[variant] = first
+            del engine
+        cap, body = outs["captured"], outs["body"]
+        n = int(cap[1])
+        if int(body[1]) != n or not np.array_equal(cap[0][:, :n], body[0][:, :n]):
+            raise AssertionError(f"{name}: the captured loop's tokens differ from the uncaptured body's")
+        same_all = all(np.array_equal(a, b) for a, b in zip(cap, body))
+        eager = outs["eager"]
+        out[name] = dict(
+            **results, tokens=n - len(args[0][0]), captured_equals_body=same_all,
+            eager_common_prefix=common_prefix(cap[0][0, :n].tolist(), eager[0][0, : int(eager[1])].tolist()),
+        )  # fmt: skip
+        log(json.dumps({"phase": "captured_loop", "mode": name, **out[name], "card": card}))
+    return out
+
+
+
+
+DONE_LAGS = (0, 1, 2, 4, 8, 16)  # the done read's lags the done-lag phase compares
+EARLY_KEEP = (4, 8, 6, 12, 16, 5, 10)  # text ids an early-end set keeps
+
+
+def early_end_set(model, args, kw, lo=16, tries=42):
+    """A suppression set under which the greedy window ends early on random
+    weights: all but EOT and K text ids drawn from a seeded generator, K
+    cycling through EARLY_KEEP (a random model tends to repeat one id, so
+    only a few draws end at all); the first set under which every row is
+    done after lo steps or more and before sample_len. Returns
+    (suppress_ids, steps)."""
+    rng = np.random.RandomState(11)
+    eot = kw["eot"]
+    engine = FusedEngine(model)
+    seen = []
+    for t in range(tries):
+        keep = set(rng.choice(eot, EARLY_KEEP[t % len(EARLY_KEEP)], replace=False).tolist())
+        sup = [i for i in range(model.dims.n_vocab) if i not in keep | {eot}]
+        engine.run(*args, **dict(kw, suppress_ids=sup))
+        steps = engine.history[-1].steps
+        seen.append(steps)
+        if lo <= steps < kw["sample_len"]:
+            return sup, steps
+    raise AssertionError(f"no suppression set ended the window after {lo} steps or more: {seen}")
+
+
+def done_lag_phase(model, audio, card):
+    """The done read's lag (engine.DONE_LAG: passes left queued on the card
+    while the host waits on an earlier pass's event) on the turbo clip's
+    first window at greedy T = 0: a window that every row ends early
+    (early_end_set) and the whole 224-step window, each at every lag of
+    DONE_LAGS, ascending then descending, two runs a turn (no timestamp
+    rules, so that the early set leaves text ids to pick). Per lag: the
+    early window's wall, replays after every row was done, done reads; the
+    whole window's wall ms a step. Every run's outputs must equal the first
+    lag's: replays after every row is done change nothing."""
+    from whisper_tpu_torch import engine as engine_module
+
+    window = first_window(model, audio)
+    # no timestamp rules: their begin penalty would leave no text id at step 0
+    opts = DecodingOptions(language="en", temperature=0.0, without_timestamps=True)
+    (args, kw), _ = engine_call(model, window, opts)
+    sup, early_steps = early_end_set(model, args, kw)
+    early = dict(kw, suppress_ids=sup)
+    engine = FusedEngine(model)
+    engine.run(*args, **early)
+    engine.run(*args, **kw)  # both windows' graphs before the timed runs
+    chosen = engine_module.DONE_LAG
+    res = {k: dict(early_ms=[], after_done=[], done_reads=[], whole_ms_per_step=[]) for k in DONE_LAGS}
+    want = {}
+    try:
+        for k in DONE_LAGS + DONE_LAGS[::-1]:
+            engine_module.DONE_LAG = k
+            for _ in range(2):
+                for name, opts in (("early", early), ("whole", kw)):
+                    out, _ = timed(lambda: engine.run(*args, **opts))
+                    run = engine.history[-1]
+                    ref = want.setdefault(name, out)
+                    if not all(np.array_equal(a, b) for a, b in zip(out, ref)):
+                        raise AssertionError(f"done lag {k}: the {name} window's outputs changed")
+                    r = res[k]
+                    if name == "early":
+                        r["early_ms"].append(run.seconds * 1e3)
+                        r["after_done"].append(run.replays + run.bodies - (run.steps - 1))
+                        r["done_reads"].append(run.done_reads)
+                    else:
+                        r["whole_ms_per_step"].append(run.seconds / run.steps * 1e3)
+    finally:
+        engine_module.DONE_LAG = chosen
+    out = dict(
+        early_steps=early_steps, whole_steps=engine.history[-1].steps, chosen=chosen,
+        lags={k: dict(early_ms_median=statistics.median(r["early_ms"]),
+                      whole_ms_per_step_median=statistics.median(r["whole_ms_per_step"]), **r)
+              for k, r in res.items()},
+    )  # fmt: skip
+    log(json.dumps({"phase": "done_lag", **out, "card": card}))
+    return out
+
+
 def decode_loop_profile(model, audio, beam_size=None):
     """One window of decode() at the model's width, greedy or beam search:
     the engine's wall ms per step (host clock, three unprofiled runs of the
@@ -2767,7 +3185,10 @@ def decode_loop_profile(model, audio, beam_size=None):
     device-busy ms per step (the union of the kernels' intervals), the
     kernels per step, the update kernel's device ms per step, and the
     host's ms per step blocked in device-to-host reads
-    (`aten::_local_scalar_dense`, the read of the `completed` flag)."""
+    (`aten::_local_scalar_dense`: the run's final read; the captured loop
+    reads its done flag from pinned memory, `done_reads` of its record).
+    The short window runs once unprofiled first, so that its graphs are
+    captured before the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     window = first_window(model, audio)
@@ -2777,38 +3198,25 @@ def decode_loop_profile(model, audio, beam_size=None):
     for _ in range(3):
         result = decode(model, window, opts)
         # the engine of the model's weights mode (decode() may build it)
-        _, _, steps, seconds = model._fused_engine.history[-1]
-        walls.append(seconds / steps * 1e3)
+        run = model._fused_engine.history[-1]
+        steps = run.steps
+        walls.append(run.seconds / steps * 1e3)
+    short = dataclasses.replace(opts, sample_len=PROFILE_STEPS)
+    decode(model, window, short)  # the short window's graphs, before the profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode(model, window, dataclasses.replace(opts, sample_len=PROFILE_STEPS))
+        decode(model, window, short)
         torch.cuda.synchronize()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
     reads = [
         e.time_range for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::_local_scalar_dense"
     ]  # fmt: skip
-    updates = [sp for sp in spans if update in sp[2]]
-    if len(updates) < 2:
-        raise AssertionError("the profiled window ran fewer than two updates")
-    lo, hi = updates[0][0], updates[-1][1]
-    busy, end, n_kernels = 0.0, lo, 0
-    for start, stop, _ in spans:
-        if stop <= lo or start >= hi:
-            continue
-        n_kernels += 1
-        start, stop = max(start, end), min(stop, hi)
-        if stop > start:
-            busy += stop - start
-            end = stop
-    n = len(updates) - 1  # steps between the first and the last update
+    span = busy_between_updates(prof, update)
+    lo, hi, n = span["lo"], span["hi"], span["steps"]  # steps between the first and the last update
     reads = [r for r in reads if lo <= r.start < hi]
+    traced_launches(f"decode {update}", span, model._fused_engine.history[-1])
     wall = statistics.median(walls)
-    busy_ms = busy / n / 1e3
+    busy_ms = span["busy_us"] / n / 1e3
     return dict(
         mode=f"beam{beam_size}" if beam_size else "greedy",
         steps=steps,
@@ -2817,10 +3225,11 @@ def decode_loop_profile(model, audio, beam_size=None):
         profiled_ms_per_step=(hi - lo) / n / 1e3,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / wall,
-        kernels_per_step=n_kernels / n,
-        update_ms_per_step=sum(b - a for a, b, _ in updates) / len(updates) / 1e3,
+        kernels_per_step=span["kernels"] / n,
+        update_ms_per_step=span["update_us"] / 1e3,
         host_reads_per_step=len(reads) / n,
         host_read_ms_per_step=sum(r.elapsed_us() for r in reads) / n / 1e3,
+        replays=run.replays, done_reads=run.done_reads,
         tokens=result.tokens,
     )
 
@@ -2913,9 +3322,9 @@ def finetune_phase(model, jfk):
     result = decode(tuned, window, DecodingOptions(language="en", temperature=0.0))
     torch.cuda.synchronize()
     counts = launch_counts()
-    steps = tuned._fused_engine.history[-1][2]
-    if counts["greedy_argmax"] != steps or not steps:
-        raise AssertionError(f"the tuned model's decode: launches {counts}, {steps} steps")
+    run = tuned._fused_engine.history[-1]
+    if counts != engine_want([run]) or not run.steps:
+        raise AssertionError(f"the tuned model's decode: launches {counts}, its record {run}")
     if not result.tokens or not np.isfinite(result.avg_logprob):
         raise AssertionError("the tuned model decoded no token")
     del tuned
@@ -3217,8 +3626,8 @@ def segment_tokens(result):
 
 def engine_ms(engine):
     """Wall ms per step of the engine's latest run (its history)."""
-    _, _, steps, seconds = engine.history[-1]
-    return seconds / steps * 1e3
+    run = engine.history[-1]
+    return run.seconds / run.steps * 1e3
 
 
 def add_counts(total, counts):
@@ -3448,9 +3857,12 @@ def parallel_phase(audio, jfk, card):
         add_counts(counts, r["launches"])
         log(json.dumps({"phase": "parallel_world2_gloo", "rank": rank, **r, "card": card}))
     log(json.dumps({"phase": "parallel", "seconds_world2": time.perf_counter() - t, "launches": counts}))
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the mesh runs launched {missing} no time: {counts}")
+    # the mesh's engines keep the eager host loop: scalar launches, no
+    # loop-state launch
+    state = ("greedy_argmax_state", "beam_update_state")
+    missing = [k for k, n in counts.items() if n == 0 and k not in state]
+    if missing or any(counts[k] for k in state):
+        raise AssertionError(f"the mesh runs launched {missing} no time, or a loop-state launch: {counts}")
     return counts
 
 
@@ -3555,8 +3967,8 @@ def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights=""):
         eot=tok.eot, timestamp_begin=tok.timestamp_begin, no_timestamps=tok.no_timestamps,
         no_speech=tok.no_speech, rng_seed=seed,
     )  # fmt: skip
-    _, _, steps, seconds = engine.history[-1]
-    return ranked_tokens(out, len(initial), tok.eot, G if beam else 0), seconds * 1e3 / steps
+    run = engine.history[-1]
+    return ranked_tokens(out, len(initial), tok.eot, G if beam else 0), run.seconds * 1e3 / run.steps
 
 
 def parting_gap(model, pdir, mel, eager, runner):
@@ -3982,6 +4394,19 @@ def runner_request(path, line, timeout=300.0):
 
 
 def main():
+    with watch_captures() as captures:
+        line, gpu_name = run_phases()
+    # the captures of this process (the CLI's subprocess and the spawned
+    # ranks capture in their own)
+    log(json.dumps({"phase": "captures", **captures}))
+    print(json.dumps(line))
+    print(card_line())
+    device = {"platform": "gpu", "kind": gpu_name, "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+
+
+def run_phases():
+    """Every phase in turn; returns (the kernels line, the card's name)."""
     start = time.perf_counter()
 
     def clock(after):
@@ -4003,7 +4428,9 @@ def main():
 
     kernels = {
         "greedy_argmax": check_greedy(), "greedy_argmax_rows": check_greedy_rows(),
-        "beam_update": check_beam(), "dtw_trace": check_dtw(), "median_filter": check_median(),
+        "greedy_argmax_state": check_greedy_state(), "beam_update": check_beam(),
+        "beam_update_state": check_beam_state(), "dtw_trace": check_dtw(),
+        "median_filter": check_median(),
     }  # fmt: skip
     clock("kernels")
     log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
@@ -4028,6 +4455,10 @@ def main():
     jfk = load_audio(os.path.join(ROOT, "tests", "data", "jfk.flac"))
     audio = np.tile(jfk, 6)[: 60 * 16000]
     model.transcribe(audio[: 16000 * 5], language="en", temperature=0.0, verbose=None)  # warm-up
+    captured_loop_phase(model, audio, card)
+    clock("captured_loop")
+    done_lag_phase(model, audio, card)
+    clock("done_lag")
     draft = spec_draft(torch.bfloat16)
 
     launches = {}
@@ -4112,7 +4543,9 @@ def main():
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "greedy_argmax_rows": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
+        "greedy_argmax_state": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "beam_update": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
+        "beam_update_state": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
         "dtw_trace": ("dtw.cu", "whisper_tpu/ops/pallas_kernels.py:138"),
         "median_filter": ("median_filter.cu", "whisper_tpu/ops/pallas_kernels.py:210"),
     }  # fmt: skip
@@ -4130,10 +4563,7 @@ def main():
             for name, r in kernels.items()
         ]
     }
-    print(json.dumps(line))
-    print(card)
-    device = {"platform": "gpu", "kind": gpu_name, "count": torch.cuda.device_count()}
-    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return line, gpu_name
 
 
 if __name__ == "__main__":

@@ -9,7 +9,12 @@ kernels if needed. Then, on the host clock:
   * `loop_fresh`: the engine's wall ms per step of one 30 s window of
     decode() at turbo width (seeded random bf16 weights, tests/data/jfk.flac
     tiled), greedy (5 runs) and beam 5 (3 runs), at temperature 0, in a
-    process that has not run the profiler;
+    process that has not run the profiler: the loop the checkout's engine
+    runs (a captured program where it has one, `loop` says which);
+  * `loop_profile`: after those, one profiled run of the window's first 48
+    steps each: device-busy ms per step (the union of the kernels'
+    intervals between the first and the last update launch), kernels per
+    step, and the idle share against loop_fresh's median wall;
   * `loop_after_profiler`: the same after one torch.profiler session of 100
     update launches, as chip_smoke.py's kernel phase takes before its
     loop profile;
@@ -36,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+from trace_stats import busy_between_updates
 
 ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))  # fmt: skip
@@ -57,6 +63,28 @@ def host_ms(fn):
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     return dict(median=statistics.median(times), mean=statistics.fmean(times))
+
+
+def loop_profile(model, window, beam_size, wall_ms):
+    """Device-busy ms per step, kernels per step and idle share (against
+    `wall_ms`) of one profiled 48-step run of the window, between the first
+    and the last update launch (the short window runs once unprofiled
+    first, so that a captured loop's graphs exist)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch import DecodingOptions, decode
+
+    opts = DecodingOptions(language="en", temperature=0.0, beam_size=beam_size, sample_len=48)
+    decode(model, window, opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(model, window, opts)
+        torch.cuda.synchronize()
+    span = busy_between_updates(prof, "beam_update_kernel" if beam_size else "greedy_argmax_kernel")
+    n = span["steps"]
+    busy_ms = span["busy_us"] / n / 1e3
+    return dict(device_busy_ms_per_step=busy_ms, kernels_per_step=span["kernels"] / n,
+                idle_share=1 - busy_ms / wall_ms)  # fmt: skip
 
 
 def main():
@@ -86,12 +114,19 @@ def main():
         walls = []
         for _ in range(runs):
             decode(model, window, opts)
-            _, _, steps, seconds = model._fused_engine.history[-1]
-            walls.append(seconds / steps * 1e3)
+            run = model._fused_engine.history[-1]  # its first four fields in every version
+            walls.append(run[3] / run[2] * 1e3)
         return walls
 
     loop(None, 1), loop(5, 1)  # warm-up
-    out["loop_fresh"] = dict(greedy=loop(None, 5), beam5=loop(5, 3))
+    fresh = dict(greedy=loop(None, 5), beam5=loop(5, 3))
+    run = model._fused_engine.history[-1]
+    fresh["loop"] = "captured" if getattr(run, "replays", 0) else "eager"
+    out["loop_fresh"] = fresh
+    out["loop_profile"] = {
+        name: loop_profile(model, window, beam, statistics.median(fresh[name]))
+        for name, beam in (("greedy", None), ("beam5", 5))
+    }
 
     rng = np.random.RandomState(0)
     sup, beg = bk.build_penalty_vectors(

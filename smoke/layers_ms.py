@@ -109,8 +109,8 @@ def main():
         enc = spans["encoder"]
         out[label] = dict(
             summary=summary(), wall_ms=wall * 1e3, mel_ms=mel_ms(),
-            windows=[dict(steps=steps, fused_decode_ms=s * 1e3, ms_per_step=s * 1e3 / steps)
-                     for _, _, steps, s in runs],
+            windows=[dict(steps=r[2], fused_decode_ms=r[3] * 1e3, ms_per_step=r[3] * 1e3 / r[2])
+                     for r in runs],
             encoder_first_ms=enc["first_call_s"] * 1e3, encoder_mean_ms=enc["steady_mean_ms"],
             host_rest_ms=1e3 * (wall - sum(s["first_call_s"] + s["steady_total_s"] for s in spans.values())),
         )  # fmt: skip
@@ -122,7 +122,7 @@ def main():
     for mode in ("sync_off", "disabled", "disabled", "sync_off", "sync_off", "disabled"):
         profiling.enabled = mode == "sync_off"
         _, runs = transcribe(None)
-        cost[mode] += [s * 1e3 / steps for _, _, steps, s in runs]
+        cost[mode] += [r[3] * 1e3 / r[2] for r in runs]
     profiling.enabled = True
     out["timing_cost"] = dict(cost, **{f"{m}_median": statistics.median(v) for m, v in cost.items()})
 

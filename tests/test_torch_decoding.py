@@ -90,7 +90,7 @@ def test_sampling_runs_and_stops(torch_model, mel):
         whisper_tpu_torch.DecodingOptions(language="en", temperature=1.0, best_of=3, sample_len=15),
     )  # fmt: skip
     assert 0 < len(res.tokens) <= 15
-    beam, temp, steps, _ = torch_model._fused_engine.history[-1]
+    beam, temp, steps = torch_model._fused_engine.history[-1][:3]
     assert (beam, temp) == (False, 1.0) and 0 < steps <= 15
 
 

@@ -37,6 +37,15 @@
 // which also keeps every CTA alive until rank 0 is done with the cluster's
 // shared memory, all G*C CTAs gather the new token rows and the pool rows
 // taken, each a slice of them.
+//
+// Loop state (wtt_beam_update_state, the captured decode loop's launch):
+// n_tokens, sample_begin, step and the live flag are read from a device
+// int32 array (update_common.cuh, LoopState), loaded by every CTA at entry;
+// the begin vector is then loaded only where n_tokens == sample_begin, as in
+// the scalar launch. When live is 0, every CTA returns at the first cluster
+// barrier, before any store of a result: the pools and the output buffers
+// keep what they held. CTA 0 adds one to `launches`, a device counter,
+// whether live or not: the count of the launches a captured graph made.
 #include "update_common.cuh"
 
 namespace wtt {
@@ -51,16 +60,26 @@ struct Selection {
   int take_slot[G];  // and their pool slots
 };
 
-template <int G, int W>
+// kState: n_tokens, sample_begin, step and live come from `state`.
+template <int G, int W, bool kState>
 __global__ void __launch_bounds__(kThreads)
 beam_update_kernel(const float* __restrict__ logits, const int* __restrict__ tokens,
                    const float* __restrict__ sum_lp, int* __restrict__ pool_tokens,
                    float* __restrict__ pool_scores, int* __restrict__ pool_lengths,
                    int* __restrict__ pool_count, const float* __restrict__ suppress,
-                   const float* __restrict__ begin, int* __restrict__ out_tokens,
+                   const float* __restrict__ begin, const int* __restrict__ state,
+                   unsigned long long* __restrict__ launches, int* __restrict__ out_tokens,
                    int* __restrict__ out_src, float* __restrict__ out_sum_lp, int V, int T,
                    int MC, int n_tokens, int sample_begin, int step, int use_ts, int eot,
                    int ts_begin) {
+  int loop_live = 1;
+  if constexpr (kState) {
+    n_tokens = min(max(__ldg(state + kNTokens), 0), T - 1);
+    sample_begin = __ldg(state + kSampleBegin);
+    step = __ldg(state + kStep);
+    loop_live = __ldg(state + kLive);
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
+  }
   constexpr int K = G + 1;
   constexpr int NC = G * K;
   __shared__ TsFlags flags;
@@ -96,6 +115,7 @@ beam_update_kernel(const float* __restrict__ logits, const int* __restrict__ tok
   }
   cluster_arrive();
   cluster_wait();
+  if (!loop_live) return;  // every CTA of the cluster read the same flag
 
   if (rank == 0) {
     const int fc = pool_count[a];  // read before thread NC-1 writes it
@@ -175,40 +195,43 @@ beam_update_kernel(const float* __restrict__ logits, const int* __restrict__ tok
   }
 }
 
-template <int G, int W>
+template <int G, int W, bool kState>
 int launch_beam(const float* logits, const int* tokens, const float* sum_lp, int* pool_tokens,
                 float* pool_scores, int* pool_lengths, int* pool_count, const float* suppress,
-                const float* begin, int* out_tokens, int* out_src, float* out_sum_lp, int A,
-                int V, int T, int MC, int n_tokens, int sample_begin, int step, int use_ts,
-                int eot, int ts_begin, cudaStream_t stream) {
-  int C = fit_chunks<beam_update_kernel<G, W>>(G);
+                const float* begin, const int* state, unsigned long long* launches,
+                int* out_tokens, int* out_src, float* out_sum_lp, int A, int V, int T, int MC,
+                int n_tokens, int sample_begin, int step, int use_ts, int eot, int ts_begin,
+                cudaStream_t stream) {
+  int C = fit_chunks<beam_update_kernel<G, W, kState>>(G);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch_clusters(beam_update_kernel<G, W>, A * G * C, G * C, stream, logits,
-                              tokens, sum_lp, pool_tokens, pool_scores, pool_lengths,
-                              pool_count, suppress, begin, out_tokens, out_src, out_sum_lp, V,
-                              T, MC, n_tokens, sample_begin, step, use_ts, eot, ts_begin);
+  return (int)launch_clusters(beam_update_kernel<G, W, kState>, A * G * C, G * C, stream,
+                              logits, tokens, sum_lp, pool_tokens, pool_scores, pool_lengths,
+                              pool_count, suppress, begin, state, launches, out_tokens, out_src,
+                              out_sum_lp, V, T, MC, n_tokens, sample_begin, step, use_ts, eot,
+                              ts_begin);
 }
 
 template <int G>
 int chunks(int V) {
-  return V % 2 ? fit_chunks<beam_update_kernel<G, 1>>(G) : fit_chunks<beam_update_kernel<G, 2>>(G);
+  return V % 2 ? fit_chunks<beam_update_kernel<G, 1, false>>(G)
+               : fit_chunks<beam_update_kernel<G, 2, false>>(G);
 }
 
-}  // namespace wtt
-
-extern "C" int wtt_beam_update(const float* logits, const int* tokens, const float* sum_lp,
-                               int* pool_tokens, float* pool_scores, int* pool_lengths,
-                               int* pool_count, const float* suppress, const float* begin,
-                               int* out_tokens, int* out_src, float* out_sum_lp, int A, int G,
-                               int V, int T, int MC, int n_tokens, int sample_begin, int step,
-                               int use_ts, int eot, int ts_begin, cudaStream_t stream) {
-  const bool vec = wtt::pair_loads(V, logits, suppress, begin);
-#define WTT_CASE(g)                                                                          \
-  case g:                                                                                    \
-    return (vec ? wtt::launch_beam<g, 2> : wtt::launch_beam<g, 1>)(                          \
-        logits, tokens, sum_lp, pool_tokens, pool_scores, pool_lengths, pool_count, suppress, \
-        begin, out_tokens, out_src, out_sum_lp, A, V, T, MC, n_tokens, sample_begin, step,    \
-        use_ts, eot, ts_begin, stream);
+// The launch for groups of G (1..8), scalar lengths or loop state.
+template <bool kState>
+int dispatch_beam(const float* logits, const int* tokens, const float* sum_lp, int* pool_tokens,
+                  float* pool_scores, int* pool_lengths, int* pool_count, const float* suppress,
+                  const float* begin, const int* state, unsigned long long* launches,
+                  int* out_tokens, int* out_src, float* out_sum_lp, int A, int G, int V, int T,
+                  int MC, int n_tokens, int sample_begin, int step, int use_ts, int eot,
+                  int ts_begin, cudaStream_t stream) {
+  const bool vec = pair_loads(V, logits, suppress, begin);
+#define WTT_CASE(g)                                                                         \
+  case g:                                                                                   \
+    return (vec ? launch_beam<g, 2, kState> : launch_beam<g, 1, kState>)(                   \
+        logits, tokens, sum_lp, pool_tokens, pool_scores, pool_lengths, pool_count,          \
+        suppress, begin, state, launches, out_tokens, out_src, out_sum_lp, A, V, T, MC,      \
+        n_tokens, sample_begin, step, use_ts, eot, ts_begin, stream);
   switch (G) {
     WTT_CASE(1)
     WTT_CASE(2)
@@ -222,6 +245,37 @@ extern "C" int wtt_beam_update(const float* logits, const int* tokens, const flo
       return (int)cudaErrorInvalidValue;
   }
 #undef WTT_CASE
+}
+
+}  // namespace wtt
+
+extern "C" int wtt_beam_update(const float* logits, const int* tokens, const float* sum_lp,
+                               int* pool_tokens, float* pool_scores, int* pool_lengths,
+                               int* pool_count, const float* suppress, const float* begin,
+                               int* out_tokens, int* out_src, float* out_sum_lp, int A, int G,
+                               int V, int T, int MC, int n_tokens, int sample_begin, int step,
+                               int use_ts, int eot, int ts_begin, cudaStream_t stream) {
+  return wtt::dispatch_beam<false>(logits, tokens, sum_lp, pool_tokens, pool_scores,
+                                   pool_lengths, pool_count, suppress, begin, nullptr, nullptr,
+                                   out_tokens, out_src, out_sum_lp, A, G, V, T, MC, n_tokens,
+                                   sample_begin, step, use_ts, eot, ts_begin, stream);
+}
+
+// Loop state: n_tokens, sample_begin, step and the live flag read from
+// state[kNTokens], state[kSampleBegin], state[kStep], state[kLive]; nothing
+// is written (pools and outputs alike) when live is 0. Each launch adds one
+// to *launches (a device counter).
+extern "C" int wtt_beam_update_state(const float* logits, const int* tokens, const float* sum_lp,
+                                     int* pool_tokens, float* pool_scores, int* pool_lengths,
+                                     int* pool_count, const float* suppress, const float* begin,
+                                     const int* state, unsigned long long* launches,
+                                     int* out_tokens, int* out_src, float* out_sum_lp, int A,
+                                     int G, int V, int T, int MC, int use_ts, int eot,
+                                     int ts_begin, cudaStream_t stream) {
+  return wtt::dispatch_beam<true>(logits, tokens, sum_lp, pool_tokens, pool_scores,
+                                  pool_lengths, pool_count, suppress, begin, state, launches,
+                                  out_tokens, out_src, out_sum_lp, A, G, V, T, MC, 0, 0, 0,
+                                  use_ts, eot, ts_begin, stream);
 }
 
 // Chunks per row that the beam kernel uses for groups of G on the current

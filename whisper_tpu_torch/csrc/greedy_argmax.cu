@@ -30,19 +30,38 @@
 // every row and adds it where the row is at sample_begin, and reads the
 // row's timestamp history up to its own length. The scalar launch is a
 // separate instantiation, unchanged.
+//
+// Loop state (wtt_greedy_argmax_state, the captured decode loop's launch):
+// n_tokens, sample_begin and the live flag are read from a device int32
+// array (update_common.cuh, LoopState) that the loop advances on the card, so
+// that one captured launch serves every step. Each CTA loads them at entry;
+// the begin vector is then loaded only where n_tokens == sample_begin, as in
+// the scalar launch. When live is 0, every CTA returns at the cluster
+// barrier, before any store of a result: a replay after every row is done
+// writes nothing. CTA 0 adds one to `launches`, a device counter, whether
+// live or not: the count of the launches a captured graph really made.
 #include "update_common.cuh"
 
 namespace wtt {
 
-// kRows: row r's length is n_rows[r] (the speculative engine's draft steps
-// and verify pass); otherwise every row is at n_tokens.
-template <int W, bool kRows>
+// kLen: kScalarLen, every row at n_tokens; kRowLens, row r's length is
+// lens[r] (the speculative engine's draft steps and verify pass);
+// kStateLens, lens is the loop's LoopState array.
+template <int W, int kLen>
 __global__ void __launch_bounds__(kThreads)
 greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ tokens,
-                     const int* __restrict__ n_rows, const float* __restrict__ suppress,
+                     const int* __restrict__ lens, const float* __restrict__ suppress,
                      const float* __restrict__ begin, int* __restrict__ out_tok,
-                     float* __restrict__ out_lp, int V, int T, int n_tokens, int sample_begin,
-                     int use_ts, int eot, int ts_begin) {
+                     float* __restrict__ out_lp, unsigned long long* __restrict__ launches,
+                     int V, int T, int n_tokens, int sample_begin, int use_ts, int eot,
+                     int ts_begin) {
+  int loop_live = 1;
+  if constexpr (kLen == kStateLens) {
+    n_tokens = min(max(__ldg(lens + kNTokens), 0), T);
+    sample_begin = __ldg(lens + kSampleBegin);
+    loop_live = __ldg(lens + kLive);
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
+  }
   __shared__ TsFlags flags;
   __shared__ Scratch<1> scratch;
   __shared__ Sweep<1> parts[kMaxCluster];  // rank 0's: the chunks' partials
@@ -55,14 +74,15 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
 
   int lo, hi;
   chunk_bounds<W>(V, C, c, lo, hi);
-  const float* beg = kRows || n_tokens == sample_begin ? begin : nullptr;
+  const float* beg = kLen == kRowLens || n_tokens == sample_begin ? begin : nullptr;
   RowSrc src{logits + (size_t)row * V, suppress, beg};
-  const int* n_row = kRows ? n_rows + row : nullptr;
-  sweep_chunk<1, W, kRows>(src, tokens + (size_t)row * T, n_tokens, sample_begin, use_ts, eot,
-                           ts_begin, use_ts ? ts_begin : V, lo, hi, flags, scratch,
-                           cluster.map_shared_rank(&parts[c], 0), n_row, T);
+  sweep_chunk<1, W, kLen == kRowLens>(src, tokens + (size_t)row * T, n_tokens, sample_begin,
+                                      use_ts, eot, ts_begin, use_ts ? ts_begin : V, lo, hi,
+                                      flags, scratch, cluster.map_shared_rank(&parts[c], 0),
+                                      kLen == kRowLens ? lens + row : nullptr, T);
   cluster_arrive();
   cluster_wait();
+  if (!loop_live) return;  // every CTA of the cluster read the same flag
 
   if (c == 0 && threadIdx.x < 32) {
     merge_row<1>(parts, C, row_sweep);
@@ -76,15 +96,15 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
   }
 }
 
-template <int W, bool kRows>
-int launch_greedy(const float* logits, const int* tokens, const int* n_rows,
-                  const float* suppress, const float* begin, int* out_tok, float* out_lp, int B,
-                  int V, int T, int n_tokens, int sample_begin, int use_ts, int eot,
-                  int ts_begin, cudaStream_t stream) {
-  int C = fit_chunks<greedy_argmax_kernel<W, kRows>>(1);
+template <int W, int kLen>
+int launch_greedy(const float* logits, const int* tokens, const int* lens,
+                  const float* suppress, const float* begin, int* out_tok, float* out_lp,
+                  unsigned long long* launches, int B, int V, int T, int n_tokens,
+                  int sample_begin, int use_ts, int eot, int ts_begin, cudaStream_t stream) {
+  int C = fit_chunks<greedy_argmax_kernel<W, kLen>>(1);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch_clusters(greedy_argmax_kernel<W, kRows>, B * C, C, stream, logits, tokens,
-                              n_rows, suppress, begin, out_tok, out_lp, V, T, n_tokens,
+  return (int)launch_clusters(greedy_argmax_kernel<W, kLen>, B * C, C, stream, logits, tokens,
+                              lens, suppress, begin, out_tok, out_lp, launches, V, T, n_tokens,
                               sample_begin, use_ts, eot, ts_begin);
 }
 
@@ -94,10 +114,11 @@ extern "C" int wtt_greedy_argmax(const float* logits, const int* tokens, const f
                                  const float* begin, int* out_tok, float* out_lp, int B, int V,
                                  int T, int n_tokens, int sample_begin, int use_ts, int eot,
                                  int ts_begin, cudaStream_t stream) {
-  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2, false>
-                                                             : wtt::launch_greedy<1, false>;
-  return launch(logits, tokens, nullptr, suppress, begin, out_tok, out_lp, B, V, T, n_tokens,
-                sample_begin, use_ts, eot, ts_begin, stream);
+  auto launch = wtt::pair_loads(V, logits, suppress, begin)
+                    ? wtt::launch_greedy<2, wtt::kScalarLen>
+                    : wtt::launch_greedy<1, wtt::kScalarLen>;
+  return launch(logits, tokens, nullptr, suppress, begin, out_tok, out_lp, nullptr, B, V, T,
+                n_tokens, sample_begin, use_ts, eot, ts_begin, stream);
 }
 
 // Per-row lengths: row r of the (B, T) history is at length n_rows[r].
@@ -105,15 +126,31 @@ extern "C" int wtt_greedy_argmax_rows(const float* logits, const int* tokens, co
                                       const float* suppress, const float* begin, int* out_tok,
                                       float* out_lp, int B, int V, int T, int sample_begin,
                                       int use_ts, int eot, int ts_begin, cudaStream_t stream) {
-  auto launch = wtt::pair_loads(V, logits, suppress, begin) ? wtt::launch_greedy<2, true>
-                                                             : wtt::launch_greedy<1, true>;
-  return launch(logits, tokens, n_rows, suppress, begin, out_tok, out_lp, B, V, T, 0,
+  auto launch = wtt::pair_loads(V, logits, suppress, begin)
+                    ? wtt::launch_greedy<2, wtt::kRowLens>
+                    : wtt::launch_greedy<1, wtt::kRowLens>;
+  return launch(logits, tokens, n_rows, suppress, begin, out_tok, out_lp, nullptr, B, V, T, 0,
                 sample_begin, use_ts, eot, ts_begin, stream);
+}
+
+// Loop state: n_tokens, sample_begin and the live flag read from
+// state[kNTokens], state[kSampleBegin], state[kLive]; nothing is written
+// when live is 0. Each launch adds one to *launches (a device counter).
+extern "C" int wtt_greedy_argmax_state(const float* logits, const int* tokens, const int* state,
+                                       const float* suppress, const float* begin, int* out_tok,
+                                       float* out_lp, unsigned long long* launches, int B, int V,
+                                       int T, int use_ts, int eot, int ts_begin,
+                                       cudaStream_t stream) {
+  auto launch = wtt::pair_loads(V, logits, suppress, begin)
+                    ? wtt::launch_greedy<2, wtt::kStateLens>
+                    : wtt::launch_greedy<1, wtt::kStateLens>;
+  return launch(logits, tokens, state, suppress, begin, out_tok, out_lp, launches, B, V, T, 0, 0,
+                use_ts, eot, ts_begin, stream);
 }
 
 // Chunks per row (the cluster size) that the greedy kernel uses on the
 // current device, 0 if none fits.
 extern "C" int wtt_greedy_argmax_chunks(int V) {
-  return V % 2 ? wtt::fit_chunks<wtt::greedy_argmax_kernel<1, false>>(1)
-               : wtt::fit_chunks<wtt::greedy_argmax_kernel<2, false>>(1);
+  return V % 2 ? wtt::fit_chunks<wtt::greedy_argmax_kernel<1, wtt::kScalarLen>>(1)
+               : wtt::fit_chunks<wtt::greedy_argmax_kernel<2, wtt::kScalarLen>>(1);
 }

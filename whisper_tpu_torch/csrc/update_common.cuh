@@ -37,6 +37,15 @@ constexpr int kUnroll = 8;       // load units in flight per thread
 constexpr int kMaxCluster = 16;  // the largest (non-portable) cluster on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
+// Where a launch reads its lengths: scalar arguments, a per-row array, or
+// the decode loop's state array on the device.
+enum { kScalarLen = 0, kRowLens = 1, kStateLens = 2 };
+
+// The decode loop's state, a device int32 array the captured loop advances
+// (whisper_tpu_torch/engine.py): the tokens so far, the first sampled
+// position, the loop step, and whether any row is still decoding.
+enum LoopState { kNTokens = 0, kSampleBegin = 1, kStep = 2, kLive = 3 };
+
 // (value desc, id asc): the order of a stable descending sort, i.e. ties go
 // to the lower id, as jax.lax.top_k and the reference's dict order do.
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {

@@ -467,32 +467,36 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head, tp=None, sp=Non
     return hidden_to_logits(dec, x[:, 0]), cache
 
 
-def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head):
-    """`decode_step` at fixed shapes, the form the exported step graphs take
-    (whisper_tpu/models/graphs.py decode_step without a window): nothing in
-    it reads the device from the host.
+def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=None):
+    """`decode_step` at fixed shapes, the form the exported step graphs and
+    the captured decode loop take (whisper_tpu/models/graphs.py decode_step):
+    nothing in it reads the device from the host.
 
     tokens: (B,) int — the tokens sampled at the previous step
-    pos:    0-d int tensor — the cache slot to write
-    cache:  (L, 2, B, 448, d) self-attention K/V, UPDATED IN PLACE: slot pos
-            of every layer is written, then all 448 slots are read with the
-            keys past pos masked
+    pos:    0-d or (1,) int tensor — the cache slot to write (< window)
+    cache:  (L, 2, B, C, d) self-attention K/V, UPDATED IN PLACE: slot pos
+            of every layer is written, then the first W slots are read with
+            the keys past pos masked
     src:    (B,) int tensor or None — the beam reorder, a gather over the
-            whole cache (None: no reorder, as greedy needs none)
+            first W slots (None: no reorder, as greedy needs none)
     ck/cv:  (L, Bc, H, dh, 1500) or int8 pairs, B % Bc == 0
+    window: W, the cache slots the step reads, masks and reorders (the
+            loop's bucketed phases: 128, 256, 448); None reads all C
 
     Returns (logits (B, n_vocab) f32, cache)."""
+    C, d = cache.shape[3], cache.shape[4]
+    W = C if window is None else window
+    view = cache if W == C else cache[:, :, :, :W]
     if src is not None:
-        cache.copy_(cache.index_select(2, src.long()))
+        view.copy_(view.index_select(2, src.long()))
     blocks = dec["blocks"]
     B = tokens.shape[0]
-    C, d = cache.shape[3], cache.shape[4]
     dh = d // n_head
     slot = pos.long().reshape(1)
     x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"].index_select(0, slot)
     x = x[:, None, :]  # (B, 1, d)
-    kmask = torch.zeros(C, device=x.device).masked_fill(
-        torch.arange(C, device=x.device) > slot, float("-inf")
+    kmask = torch.zeros(W, device=x.device).masked_fill(
+        torch.arange(W, device=x.device) > slot, float("-inf")
     )
 
     for l in range(blocks["attn_q_w"].shape[0]):
@@ -501,8 +505,8 @@ def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head):
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
         new = torch.stack([_dot(h, blk, "attn_k_w"), _dot(h, blk, "attn_v_w") + blk["attn_v_b"]])
         cache[l].index_copy_(2, slot, new.to(cache.dtype))  # (2, B, 1, d) into slot pos
-        keys = cache[l, 0].view(B, C, n_head, dh).transpose(1, 2)  # (B, H, C, dh)
-        vals = cache[l, 1].view(B, C, n_head, dh).transpose(1, 2)
+        keys = view[l, 0].view(B, W, n_head, dh).transpose(1, 2)  # (B, H, W, dh)
+        vals = view[l, 1].view(B, W, n_head, dh).transpose(1, 2)
         qh = (q * (dh**-0.5)).view(B, 1, n_head, dh).transpose(1, 2)  # (B, H, 1, dh)
         w = _softmax_f32(matmul_f32(qh, keys.transpose(-1, -2)) + kmask, x.dtype)
         x = _self_attn_out(x, blk, _merge_heads(w @ vals), None)

@@ -10,6 +10,12 @@ whisper_tpu/engine_fused.py: `apply_filters` is `_apply_filters` expressed
 through the penalty vectors, `greedy_argmax_plain` adds argmax and
 logit - logsumexp, `beam_update_plain` is `_beam_update` for A audios.
 Ties are broken explicitly (stable sorts): torch.topk promises no order.
+
+The loop scalars (n_tokens, sample_begin, step) are host ints, or 0-d /
+(1,) int32 tensors on the logits' device: the captured decode loop keeps
+them in a device array, the loop state (`N_TOKENS`, `SAMPLE_BEGIN`, `STEP`,
+`LIVE`), which `greedy_argmax_state` and `beam_update_state` read on the
+card. There `live` = 0 (every row done) makes the update write nothing.
 """
 
 import numpy as np
@@ -18,6 +24,17 @@ import torch
 from ..kernels import build
 
 NEG_INF = float("-inf")
+
+# the loop state's fields (csrc/update_common.cuh, LoopState)
+N_TOKENS, SAMPLE_BEGIN, STEP, LIVE = range(4)
+STATE_LEN = 4
+
+
+def _scalar(x, dev):
+    """A loop scalar (host int or 0-d / (1,) tensor) as a (1,) int64 tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.long).reshape(1)
+    return torch.full((1,), int(x), dtype=torch.long, device=dev)
 
 
 def build_penalty_vectors(
@@ -50,17 +67,20 @@ def apply_filters(
     use_timestamps, eot, timestamp_begin,
 ):  # fmt: skip
     """SuppressBlank / SuppressTokens / ApplyTimestampRules on (R, V) f32
-    logits with the (R, T) token history. n_tokens is every row's length
-    (an int) or a (R,) integer tensor of per-row lengths, as the JAX
+    logits with the (R, T) token history. n_tokens is every row's length (a
+    loop scalar) or a (R,) integer tensor of per-row lengths, as the JAX
     package's _apply_filters takes it: the begin penalty applies to the rows
-    at sample_begin, and each row's timestamp rules read its own history."""
+    at sample_begin (a loop scalar), and each row's timestamp rules read its
+    own history."""
     R, V = logits.shape
     T = tokens.shape[1]
     dev = logits.device
-    if isinstance(n_tokens, torch.Tensor):
+    if isinstance(n_tokens, torch.Tensor) and n_tokens.numel() == R and n_tokens.dim() == 1:
         nt = n_tokens.to(device=dev, dtype=torch.long)
     else:
-        nt = torch.full((R,), int(n_tokens), dtype=torch.long, device=dev)
+        nt = _scalar(n_tokens, dev).expand(R)
+    if isinstance(sample_begin, torch.Tensor):
+        sample_begin = _scalar(sample_begin, dev)
     at_begin = nt == sample_begin
     l = logits + suppress_pen
     l = l + torch.where(at_begin[:, None], begin_pen, 0.0)
@@ -112,9 +132,11 @@ def greedy_argmax_plain(
 def beam_update_plain(
     logits, tokens, sum_logprobs, pool_tokens, pool_scores, pool_lengths, pool_count,
     n_tokens, sample_begin, step, suppress_pen, begin_pen, *,
-    n_group, use_timestamps, eot, timestamp_begin,
+    n_group, use_timestamps, eot, timestamp_begin, live=None,
 ):  # fmt: skip
-    """See `beam_update`."""
+    """See `beam_update`. `live` (a 0-d / (1,) tensor, or None for 1): at 0
+    the pools stay as they are and the result is (tokens, the identity,
+    sum_logprobs)."""
     G = n_group
     K = G + 1
     B, T = tokens.shape
@@ -132,8 +154,11 @@ def beam_update_plain(
     top_lp = top_raw[:, :K] - lse[:, None]
     cand_scores = (sum_logprobs[:, None] + top_lp).reshape(A, n_cand)
     cand_tokens = top_tok[:, :K].reshape(A, n_cand)
-    if step == 0:  # all beams identical: only beam 0's candidates count
-        cand_scores[:, K:] = NEG_INF
+    # step 0: all beams identical, only beam 0's candidates count
+    first = _scalar(step, dev) == 0
+    cand_scores = cand_scores.masked_fill(first[:, None] & (torch.arange(n_cand, device=dev) >= K), NEG_INF)
+    nt = _scalar(n_tokens, dev)
+    lv = torch.ones(1, dtype=torch.bool, device=dev) if live is None else _scalar(live, dev) != 0
 
     # ranking: score desc, ties by flat (beam, rank) id
     order_scores, order_idx = torch.sort(cand_scores, dim=1, descending=True, stable=True)
@@ -155,21 +180,26 @@ def beam_update_plain(
     new_tok = order_tokens.gather(1, slot_source).reshape(B)
     new_src = (order_src.gather(1, slot_source) + rows).reshape(B)
     new_tokens = tokens[new_src]
-    new_tokens[:, n_tokens] = new_tok.to(tokens.dtype)
+    new_tokens.scatter_(1, nt.expand(B)[:, None], new_tok.to(tokens.dtype)[:, None])
 
     # finished pools: collected EOT candidates in rank order, while room lasts
     coll = eot_collected.to(torch.int64)
     slot = pool_count[:, None].to(torch.int64) + torch.cumsum(coll, dim=1) - coll
-    take = eot_collected & (slot < MC)
+    take = eot_collected & (slot < MC) & lv
     a_idx, r_idx = take.nonzero(as_tuple=True)
     s_idx = slot[a_idx, r_idx]
-    seqs = torch.zeros((a_idx.shape[0], T + 1), dtype=pool_tokens.dtype, device=dev)
+    n_take = a_idx.shape[0]
+    seqs = torch.zeros((n_take, T + 1), dtype=pool_tokens.dtype, device=dev)
     seqs[:, :T] = tokens[(a_idx * G + order_src[a_idx, r_idx])]
-    seqs[:, n_tokens] = eot
+    seqs.scatter_(1, nt.expand(n_take)[:, None], torch.full((n_take, 1), eot, dtype=seqs.dtype, device=dev))
     pool_tokens[a_idx, s_idx] = seqs
     pool_scores[a_idx, s_idx] = order_scores[a_idx, r_idx]
-    pool_lengths[a_idx, s_idx] = n_tokens + 1
+    pool_lengths[a_idx, s_idx] = (nt + 1).to(pool_lengths.dtype).expand(n_take)
     pool_count += take.sum(dim=1).to(pool_count.dtype)
+    if live is not None:
+        new_tokens = torch.where(lv[:, None], new_tokens, tokens)
+        new_src = torch.where(lv, new_src, torch.arange(B, device=dev))
+        new_scores = torch.where(lv, new_scores, sum_logprobs)
     return new_tokens, new_src.to(torch.int32), new_scores
 
 
@@ -190,6 +220,37 @@ def _check(name, t, dtype, shape, device):
 def _launch_check(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+# The loop-state launches are counted on the card, by the kernels: CTA 0 of
+# each launch adds one to its kernel's counter, so the replays of a captured
+# graph, which make no Python call, count as the launches they are. One
+# (greedy, beam) int64 pair per device.
+_STATE_COUNTERS = {}
+
+
+def _state_counter(dev, which):
+    """The address of dev's counter of the greedy (0) or beam (1) loop-state
+    kernel, made at the first uncaptured launch: a zeroing made while a
+    stream is captured would be recorded into the graph."""
+    counters = _STATE_COUNTERS.get(dev.index)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch the loop-state kernels once before capturing them")
+        with torch.inference_mode(False):  # a normal tensor: reset outside inference mode too
+            counters = _STATE_COUNTERS[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return counters.data_ptr() + counters.element_size() * which
+
+
+def state_launches():
+    """The loop-state kernels' launches since the last reset, read from the
+    cards' counters (a synchronizing read): greedy_argmax_state and
+    beam_update_state."""
+    greedy = beam = 0
+    for counters in _STATE_COUNTERS.values():
+        g, b = counters.tolist()
+        greedy, beam = greedy + g, beam + b
+    return {"greedy_argmax_state": greedy, "beam_update_state": beam}
 
 
 def greedy_argmax(
@@ -250,6 +311,48 @@ def greedy_argmax(
 
 greedy_argmax.launches = 0
 greedy_argmax.row_launches = 0
+
+
+def greedy_argmax_state(
+    logits, tokens, state, suppress_pen, begin_pen, tok_out, lp_out, *,
+    use_timestamps, eot, timestamp_begin,
+):  # fmt: skip
+    """`greedy_argmax` at the loop state: every row's length and the first
+    sampled position are read from `state` ((STATE_LEN,) int32 on the
+    logits' device, csrc/update_common.cuh LoopState), the results go into
+    the caller's tok_out (B,) int32 and lp_out (B,) f32, and where
+    state[LIVE] is 0 nothing is written. The host checks read shapes and
+    types only, so a CUDA graph can capture the launch (csrc/greedy_argmax.cu
+    `wtt_greedy_argmax_state`). The kernel counts its launches on the card
+    (`state_launches`). Returns (tok_out, lp_out)."""
+    kw = dict(use_timestamps=use_timestamps, eot=eot, timestamp_begin=timestamp_begin)
+    if logits.device.type == "cpu":
+        tok, lp = greedy_argmax_plain(
+            logits, tokens, state[N_TOKENS], state[SAMPLE_BEGIN], suppress_pen, begin_pen, **kw
+        )
+        live = state[LIVE] != 0
+        tok_out.copy_(torch.where(live, tok, tok_out))
+        lp_out.copy_(torch.where(live, lp, lp_out))
+        return tok_out, lp_out
+    if logits.device.type != "cuda":
+        raise ValueError(f"greedy_argmax_state runs on CUDA or CPU tensors, not {logits.device}")
+    B, V = logits.shape
+    T = tokens.shape[1]
+    dev = logits.device
+    _check("logits", logits, torch.float32, (B, V), dev)
+    _check("tokens", tokens, torch.int32, (B, T), dev)
+    _check("state", state, torch.int32, (STATE_LEN,), dev)
+    _check("suppress_pen", suppress_pen, torch.float32, (V,), dev)
+    _check("begin_pen", begin_pen, torch.float32, (V,), dev)
+    _check("tok_out", tok_out, torch.int32, (B,), dev)
+    _check("lp_out", lp_out, torch.float32, (B,), dev)
+    rc = build.load_library().wtt_greedy_argmax_state(
+        logits.data_ptr(), tokens.data_ptr(), state.data_ptr(), suppress_pen.data_ptr(),
+        begin_pen.data_ptr(), tok_out.data_ptr(), lp_out.data_ptr(), _state_counter(dev, 0), B,
+        V, T, int(use_timestamps), eot, timestamp_begin, torch.cuda.current_stream(dev).cuda_stream,
+    )  # fmt: skip
+    _launch_check(rc, "greedy_argmax_state")
+    return tok_out, lp_out
 
 
 def beam_update(
@@ -319,10 +422,75 @@ def beam_update(
 beam_update.launches = 0
 
 
+def beam_update_state(
+    logits, tokens, sum_logprobs, pool_tokens, pool_scores, pool_lengths, pool_count,
+    state, suppress_pen, begin_pen, new_tokens, src, new_lp, *,
+    n_group, use_timestamps, eot, timestamp_begin,
+):  # fmt: skip
+    """`beam_update` at the loop state: n_tokens, sample_begin and step are
+    read from `state` ((STATE_LEN,) int32 on the logits' device), the
+    results go into the caller's new_tokens (A*G, T) int32, src (A*G,)
+    int32 and new_lp (A*G,) f32, and the pools are updated in place. Where
+    state[LIVE] is 0 nothing is written: the pools and the three outputs
+    keep what they held. The host checks read shapes and types only
+    (csrc/beam_update.cu `wtt_beam_update_state`). The kernel counts its
+    launches on the card (`state_launches`). Returns (new_tokens, src,
+    new_lp)."""
+    kw = dict(
+        n_group=n_group, use_timestamps=use_timestamps, eot=eot, timestamp_begin=timestamp_begin
+    )
+    pools = (pool_tokens, pool_scores, pool_lengths, pool_count)
+    if logits.device.type == "cpu":
+        got = beam_update_plain(
+            logits, tokens, sum_logprobs, *pools, state[N_TOKENS], state[SAMPLE_BEGIN],
+            state[STEP], suppress_pen, begin_pen, live=state[LIVE], **kw,
+        )  # fmt: skip
+        live = state[LIVE] != 0
+        for out, value in zip((new_tokens, src, new_lp), got):
+            out.copy_(torch.where(live, value, out))
+        return new_tokens, src, new_lp
+    if logits.device.type != "cuda":
+        raise ValueError(f"beam_update_state runs on CUDA or CPU tensors, not {logits.device}")
+    G = n_group
+    if not 1 <= G <= 8:
+        raise ValueError(f"beam_update supports 1 <= n_group <= 8, got {G}")
+    B, V = logits.shape
+    T = tokens.shape[1]
+    if B % G:
+        raise ValueError(f"{B} rows do not split into groups of {G}")
+    A = B // G
+    MC = pool_tokens.shape[1]
+    dev = logits.device
+    _check("logits", logits, torch.float32, (B, V), dev)
+    _check("tokens", tokens, torch.int32, (B, T), dev)
+    _check("sum_logprobs", sum_logprobs, torch.float32, (B,), dev)
+    _check("pool_tokens", pool_tokens, torch.int32, (A, MC, T + 1), dev)
+    _check("pool_scores", pool_scores, torch.float32, (A, MC), dev)
+    _check("pool_lengths", pool_lengths, torch.int32, (A, MC), dev)
+    _check("pool_count", pool_count, torch.int32, (A,), dev)
+    _check("state", state, torch.int32, (STATE_LEN,), dev)
+    _check("suppress_pen", suppress_pen, torch.float32, (V,), dev)
+    _check("begin_pen", begin_pen, torch.float32, (V,), dev)
+    _check("new_tokens", new_tokens, torch.int32, (B, T), dev)
+    _check("src", src, torch.int32, (B,), dev)
+    _check("new_lp", new_lp, torch.float32, (B,), dev)
+    rc = build.load_library().wtt_beam_update_state(
+        logits.data_ptr(), tokens.data_ptr(), sum_logprobs.data_ptr(),
+        *(t.data_ptr() for t in pools), suppress_pen.data_ptr(), begin_pen.data_ptr(),
+        state.data_ptr(), _state_counter(dev, 1), new_tokens.data_ptr(), src.data_ptr(),
+        new_lp.data_ptr(), A, G, V, T, MC, int(use_timestamps), eot, timestamp_begin,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )  # fmt: skip
+    _launch_check(rc, "beam_update_state")
+    return new_tokens, src, new_lp
+
+
 def reset_launch_counts():
     greedy_argmax.launches = 0
     greedy_argmax.row_launches = 0
     beam_update.launches = 0
+    for counters in _STATE_COUNTERS.values():
+        counters.zero_()
 
 
 def cluster_sizes(n_group, V):

@@ -86,6 +86,8 @@ class DataParallelEngine(FusedEngine):
     dh, T) on every rank and returns the single-device engine's nine
     outputs on every rank."""
 
+    eager_loop = True  # its steps carry the mesh's collectives: not captured
+
     def __init__(self, model, mesh, weights: str = ""):
         super().__init__(model, weights=weights)
         self.mesh = mesh
