@@ -30,7 +30,7 @@ Phases (any failure raises and the script exits non-zero):
      where NaN (widths 3, 5 and 13 likewise on 300 rows); at T = 1499 and
      1502 and on an offset view 4 bytes past a 16-byte boundary (the
      scalar-load build); then 1,000 back-to-back launches. The greedy
-     kernel's per-row-length launch (the speculative engine's): its verify
+     kernel's per-row-length launch (the mesh's speculative loop's): its verify
      layout at B = 5, 10 and 20 (A = 1, 2 and 4 audios of K + 1 = 5 rows at
      lengths n[a] + j) and its draft-step layout at B = 1, 2 and 4 (one
      history per row at its own length, verified tokens past it), rows at
@@ -41,7 +41,12 @@ Phases (any failure raises and the script exits non-zero):
      loop's: lengths, step and live read from a device array) on every
      scalar case and offset case, at live = 0 (nothing written: outputs
      and pools as they were), 1,000 back-to-back launches, and their
-     device ms beside the scalar launch's on the same inputs. Time kernel and
+     device ms beside the scalar launch's on the same inputs. The greedy
+     kernel's per-row launch at the loop state (the captured speculative
+     round's: lengths from a (B,) array, sample_begin and live from the
+     state array) on every per-row case above, at live = 0 on every third,
+     1,000 back-to-back launches, its device ms beside the per-row launch
+     on the same inputs at B = 1, 5 and 20. Time kernel and
      plain version on the device (the profiler's kernel records) and per
      call with the host's work (CUDA events, median of the calls); time
      `unfold(...).median(-1)` beside the median filter, the empty kernel at
@@ -143,18 +148,27 @@ Phases (any failure raises and the script exits non-zero):
      on the same inputs within 1e-4, the cross-attention output within
      1e-3; a prefill and a step's logits reported); the speculative
      engine (a tiny-class draft with turbo's vocabulary and mels, K = 4)
-     against the plain engine on one window, with a random draft and with
-     a one-token vocabulary (every draft accepted): rounds, acceptance,
-     tokens per round, ms per token (bf16: the median of two runs after
-     an untimed one), launches (one scalar greedy launch and one per-row
-     launch per draft step and verify round, checked on every run), in
-     bf16 and at float32, where the tokens must be equal; one profiled speculative run
-     (per round: wall, device-busy, idle share, kernels, host ms of a
-     draft step, a verify pass and the round's read); transcribe() of the
-     clip and a ContinuousBatcher(slots=2) round with a draft at float32,
-     equal to the plain ones. The main path also runs the clip at T = 0
-     plainly and with the bf16 draft installed, whose launches its check
-     counts;
+     on one window, its round captured, uncaptured (the body run eagerly)
+     and the eager host loop, beside the plain captured engine, with a
+     random draft and with a one-token vocabulary (every draft accepted),
+     in bf16 and at float32: rounds, acceptance, tokens per round, ms per
+     token (plain and captured: the median of two runs after an untimed
+     one; the other two one run), replays, captures and their seconds,
+     launches checked on every run against its record (one scalar greedy
+     launch, then K + 2 per-row loop-state launches a round pass, or the
+     eager loop's per-row launch a draft step and a verify round); the
+     captured round's outputs equal the uncaptured body's, and at float32
+     its tokens equal the eager loop's and the plain engine's; one
+     profiled captured run per draft (per replayed round: device-busy ms,
+     its span and idle share, kernels; host ms of a replay and of a done
+     read; the trace's greedy launches against the record); one more
+     captured run per bracket with each replay between CUDA events (the
+     graph's span a replay and a token, the host ms of its call, the wall
+     outside the graphs); then
+     transcribe() of the clip and a ContinuousBatcher(slots=2) round with a
+     draft at float32, equal to the plain ones. The main path also runs the
+     clip at T = 0 plainly and with the bf16 draft installed (the captured
+     round), whose launches its check counts;
   train. fine-tuning, checkpoints and distillation: graphs.matmul_f32's
      autograd Function on bf16 operands at turbo width (logits head,
      encoder and cross-attention scores, a broadcast K): forward equal to
@@ -228,9 +242,11 @@ Phases (any failure raises and the script exits non-zero):
      {"ok": true, "device": {...}}.
 Every launch check holds the update kernels' counts to what the engines'
 records say they launched (engine_want): a captured loop's step 0
-scalar, each replay and uncaptured pass at the loop state; the mesh's
-eager loop once a step. The loop-state launches are counted on the card
-by the kernels themselves (a replay makes no Python call).
+scalar, each replay and uncaptured pass at the loop state; a speculative
+run's step 0 scalar, K + 2 per-row loop-state launches a round pass; the
+mesh's eager loops once a step (per-row for its speculative engine). The
+loop-state launches are counted on the card by the kernels themselves (a
+replay makes no Python call).
 Exits non-zero, printing no result, where CUDA is not available.
 """
 
@@ -737,32 +753,35 @@ GREEDY_DRAFT_OFFSET_CASES = [
 ]  # fmt: skip
 
 
-def check_greedy_rows():
-    """The per-row-length greedy launch (the speculative engine's draft
-    steps and verify pass) against the plain version on the same lengths:
-    every verify case and every draft-step case, the offset-view cases of
-    both (scalar-load build), 1,000 back-to-back launches alternating two
-    inputs; then its device ms at B = 5 and 20 (verify) and B = 1 and 2
-    (draft step) beside the scalar launch on the same logits and history
-    (all rows at one length), and the scalar launch at the main path's B =
-    1 (the row launch's B = 1 time is on the same inputs)."""
-    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+def rows_cases(C):
+    """Every per-row case as (args, kw, what): the verify cases, the
+    draft-step cases, then the offset-view cases of both (scalar-load
+    build)."""
     for seed, case in enumerate(GREEDY_ROWS_CASES, 200):
-        args, kw = rows_case(seed, *case, C)
-        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), f"rows {case}"))
-    for seed, (*case, which) in enumerate(GREEDY_ROWS_OFFSET_CASES, 250):
-        args, kw = rows_case(seed, *case, C, W=1)
-        args = offset_inputs(args, which, 0, 4)
-        what = f"rows {case}, {which} offset"
-        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+        yield (*rows_case(seed, *case, C), f"rows {case}")
     for seed, (A, use_ts, mode, at_begin, shift) in enumerate(GREEDY_DRAFT_CASES, 500):
         args, kw = rows_case(seed, A, 0, use_ts, mode, C, at_begin=at_begin, shift=shift)
-        what = f"draft step {(A, use_ts, mode, at_begin, shift)}, lengths {args[2].tolist()}"
-        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+        yield args, kw, f"draft step {(A, use_ts, mode, at_begin, shift)}, lengths {args[2].tolist()}"
+    for seed, (*case, which) in enumerate(GREEDY_ROWS_OFFSET_CASES, 250):
+        args, kw = rows_case(seed, *case, C, W=1)
+        yield offset_inputs(args, which, 0, 4), kw, f"rows {case}, {which} offset"
     for seed, (A, use_ts, mode, at_begin, shift, which) in enumerate(GREEDY_DRAFT_OFFSET_CASES, 550):
         args, kw = rows_case(seed, A, 0, use_ts, mode, C, W=1, at_begin=at_begin, shift=shift)
-        args = offset_inputs(args, which, 0, 4)
         what = f"draft step {(A, use_ts, mode, at_begin, shift)}, {which} offset"
+        yield offset_inputs(args, which, 0, 4), kw, what
+
+
+def check_greedy_rows():
+    """The per-row-length greedy launch (the mesh's speculative engine's
+    draft steps and verify pass) against the plain version on the same
+    lengths: every case of rows_cases, 1,000 back-to-back launches
+    alternating two inputs; then its device ms at B = 5 and 20 (verify)
+    and B = 1 and 2 (draft step) beside the scalar launch on the same
+    logits and history (all rows at one length), and the scalar launch at
+    the main path's B = 1 (the row launch's B = 1 time is on the same
+    inputs)."""
+    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+    for args, kw, what in rows_cases(C):
         err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
     x = rows_case(301, 4, 4, True, "randn", C)
     y = rows_case(302, 4, 4, True, "edge_ties", C)
@@ -813,6 +832,74 @@ def check_greedy_rows():
         lambda: bk.greedy_argmax(*rows, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
         counter="row_launches",
     )  # fmt: skip
+    return out
+
+
+def rows_state_call(args, kw, live=1, outs=None, state=None):
+    """The per-row launch at the loop state on a per-row case's inputs: the
+    lengths on the card as given, sample_begin and live in a loop-state
+    array (`state`, or a new one); into `outs`, or fresh outputs holding
+    sentinels (-1, 7.0)."""
+    logits, tokens, n_rows, sample_begin, sup, beg = args
+    B = logits.shape[0]
+    if outs is None:
+        outs = (torch.full((B,), -1, dtype=torch.int32, device=DEV), torch.full((B,), 7.0, device=DEV))
+    if state is None:
+        state = loop_state(0, sample_begin, 0, live)
+    return bk.greedy_argmax_rows_state(logits, tokens, n_rows, state, sup, beg, *outs, **kw)
+
+
+def check_greedy_rows_state():
+    """The per-row launch at the loop state (wtt_greedy_argmax_rows_state,
+    the captured speculative round's draft and verify launches) on every
+    case of rows_cases (verify B = 5, 10, 20; draft step B = 1, 2, 4;
+    chunk-edge ties; offset views), and at live = 0 on every third case,
+    which must leave the outputs as they were; 1,000 back-to-back launches
+    alternating two inputs; then its device ms beside the per-row launch
+    on the same inputs at the main path's B = 1 (draft step) and B = 5
+    (verify, the kernels line's shape) and at B = 20, with the bound,
+    the empty kernel at the launch's shape, the plain version and
+    torch.topk at B = 5."""
+    err, C = 0.0, bk.cluster_sizes(1, V)[0]
+    for i, (args, kw, what) in enumerate(rows_cases(C)):
+        err = max(err, same_greedy(args, kw, rows_state_call(args, kw), f"rows state {what}"))
+        if i % 3 == 0:
+            tok, lp = rows_state_call(args, kw, live=0)
+            torch.cuda.synchronize()
+            if not ((tok == -1).all() and (lp == 7.0).all()):
+                raise AssertionError(f"greedy_argmax_rows_state wrote at live = 0 ({what})")
+    x = rows_case(301, 4, 4, True, "randn", C)
+    y = rows_case(302, 4, 4, True, "edge_ties", C)
+    for _ in range(500):
+        out_x = rows_state_call(*x)
+        out_y = rows_state_call(*y)
+    err = max(err, same_greedy(*x, out_x, "rows state 999"), same_greedy(*y, out_y, "rows state 1000"))
+
+    out = dict(max_abs_err=err, cluster=C, state_ms={}, rows_ms={})
+    for A, K in ((1, 0), (1, 4), (4, 4)):
+        args, kw = rows_case(410 + A + K, A, K, True, "randn", C, at_begin=False)
+        B = A * (K + 1)
+        outs = (torch.empty(B, dtype=torch.int32, device=DEV), torch.empty(B, device=DEV))
+        state = loop_state(0, SAMPLE_BEGIN, 0)
+        launch = lambda: rows_state_call(args, kw, outs=outs, state=state)  # noqa: E731
+        out["state_ms"][B] = kernel_ms(
+            launch, bk.greedy_argmax, "greedy_argmax_kernel", counter="greedy_argmax_rows_state"
+        )
+        out["rows_ms"][B] = kernel_ms(
+            lambda: bk.greedy_argmax(*args, **kw), bk.greedy_argmax, "greedy_argmax_kernel",
+            counter="row_launches",
+        )  # fmt: skip
+        if B == 5:
+            # logits, suppress, the histories to their lengths, lengths, state
+            # (no row at sample_begin: no begin vector); tok + lp, counter
+            n_hist = int((args[2] - SAMPLE_BEGIN + 2).sum())
+            nbytes = 4 * (B * V + V + n_hist + B + bk.STATE_LEN) + 8 * B + 8
+            plain = lambda: bk.greedy_argmax_plain(*args, **kw)  # noqa: E731
+            out.update(
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=out["state_ms"][B],
+                call_ms=call_ms(launch), plain_ms=device_ms(plain)[0], plain_call_ms=call_ms(plain),
+                empty_ms=empty_ms(B * C, C), library_ms=device_ms(lambda: torch.topk(args[0], 1, dim=-1))[0],
+            )  # fmt: skip
     return out
 
 
@@ -1567,6 +1654,31 @@ def watch_captures():
 
 
 @contextlib.contextmanager
+def watch_graph_replays():
+    """Within the block, every CUDAGraph.replay: the host seconds of its
+    call, and CUDA events recorded on the current stream just before and
+    just after it (their interval is the graph's span on the card). Yields
+    the list of (host s, start event, end event). Restored on exit."""
+    replay = torch.cuda.CUDAGraph.replay
+    seen = []
+
+    def watched(self):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        replay(self)
+        host = time.perf_counter() - t0
+        end.record()
+        seen.append((host, start, end))
+
+    torch.cuda.CUDAGraph.replay = watched
+    try:
+        yield seen
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+
+
+@contextlib.contextmanager
 def watch_rounds():
     """Within the block, log each call of batch.py's _decode_window_batch
     (transcribe_batch's and the batcher's rounds: a round's first attempt,
@@ -1595,16 +1707,19 @@ def reset_launch_counts():
 
 def launch_counts():
     """Each kernel's launches since the last reset: the update kernels'
-    scalar launches (step 0 of a captured loop, every step of the mesh's
-    eager loop), their loop-state launches (a captured loop's replays and
-    its uncaptured passes, counted on the card by the kernels themselves:
-    a replay makes no Python call) and the greedy kernel's per-row-length
-    ones (the speculative engine's draft steps and verify passes) apart."""
+    scalar launches (step 0 of a captured loop or speculative run, every
+    step of the mesh's eager loop), their loop-state launches (a captured
+    loop's replays and its uncaptured passes, counted on the card by the
+    kernels themselves: a replay makes no Python call), the greedy
+    kernel's per-row loop-state launches (the speculative round's draft and
+    verify passes, counted on the card too) and its per-row-length ones
+    (the mesh's speculative host loop) apart."""
     state = bk.state_launches()
     return {
         "greedy_argmax": bk.greedy_argmax.launches,
         "greedy_argmax_rows": bk.greedy_argmax.row_launches,
         "greedy_argmax_state": state["greedy_argmax_state"],
+        "greedy_argmax_rows_state": state["greedy_argmax_rows_state"],
         "beam_update": bk.beam_update.launches,
         "beam_update_state": state["beam_update_state"], "dtw_trace": dtw.dtw_trace.launches,
         "median_filter": median.median_filter.launches,
@@ -1627,12 +1742,16 @@ def traced_launches(name, span, run, counts=None):
 
 def engine_want(runs, aligned=0, spec=()):
     """The launches that engine runs (`EngineRun` records of
-    FusedEngine.history), speculative runs (SpeculativeEngine.history) and
-    `aligned` word-timing windows make: a captured loop's update launches
-    once at step 0 (scalar) and once per replay and uncaptured pass (loop
-    state: its capture warm-ups too); the eager loop once per step; a
-    speculative run once at step 0 and once per draft step and verify
-    round (per-row)."""
+    FusedEngine.history), speculative runs (`SpecRun` records of
+    SpeculativeEngine.history) and `aligned` word-timing windows make: a
+    captured loop's update launches once at step 0 (scalar) and once per
+    replay and uncaptured pass (loop state: its capture warm-ups too); the
+    eager loop once per step; a speculative run once at step 0 (scalar),
+    then K + 1 draft launches and one verify launch per replay and
+    uncaptured round pass (per-row at the loop state), or, on the mesh's
+    host loop, one per-row launch per draft step and verify round. Each
+    speculative record's own greedy count (the card's, for a program) must
+    say the same."""
     want = dict.fromkeys(launch_counts(), 0)
     want["dtw_trace"] = want["median_filter"] = aligned
     for r in runs:
@@ -1644,8 +1763,15 @@ def engine_want(runs, aligned=0, spec=()):
         else:
             want[kind] += 1
             want[kind + "_state"] += r.replays + r.bodies
-    want["greedy_argmax"] += len(spec)
-    want["greedy_argmax_rows"] += sum(r[1] + r[2] for r in spec)
+    for r in spec:
+        if r.loop == "eager":
+            per_row, kind = r.draft_steps + r.rounds, "greedy_argmax_rows"
+        else:
+            per_row, kind = (r.k + 2) * (r.replays + r.bodies), "greedy_argmax_rows_state"
+        if r.launches != 1 + per_row:
+            raise AssertionError(f"a speculative run counted {r.launches} greedy launches, not 1 + {per_row}: {r}")
+        want["greedy_argmax"] += 1
+        want[kind] += per_row
     return want
 
 
@@ -1707,8 +1833,8 @@ def main_path(model, audio, draft=None, **kw):
     if segs and segs[-1]["end"] > len(audio) / 16000 + 30:
         raise AssertionError("segments end past the clip")
     # a speculative run counts its tokens decoded, as a plain run its steps
-    steps = sum(r[2] for r in runs) + sum(r[3] for r in spec)
-    decode_s = sum(r[3] for r in runs) + sum(r[4] for r in spec)
+    steps = sum(r.steps for r in runs) + sum(r.steps for r in spec)
+    decode_s = sum(r.seconds for r in runs) + sum(r.seconds for r in spec)
     stats = dict(
         replays=sum(r.replays for r in runs), captures=sum(r.captures for r in runs),
         capture_s=sum(r.capture_s for r in runs), done_reads=sum(r.done_reads for r in runs),
@@ -1723,14 +1849,17 @@ def main_path(model, audio, draft=None, **kw):
         temperatures=sorted({r[1] for r in runs}),
     )
     if spec:
-        rounds = sum(r[2] for r in spec)
+        rounds = sum(r.rounds for r in spec)
         # each round emits its accepted drafts and one token of the target's
-        accepted = sum(max(r[3] - 1 - r[2], 0) for r in spec)
+        accepted = sum(max(r.steps - 1 - r.rounds, 0) for r in spec)
         stats.update(
-            spec_windows=len(spec), draft_steps=sum(r[1] for r in spec),
-            verify_rounds=rounds, tokens_decoded=sum(r[3] for r in spec),
+            spec_windows=len(spec), draft_steps=sum(r.draft_steps for r in spec),
+            verify_rounds=rounds, tokens_decoded=sum(r.steps for r in spec),
             acceptance=accepted / max(rounds * model.draft_k, 1),
-            tokens_per_round=sum(r[3] for r in spec) / max(rounds, 1),
+            tokens_per_round=sum(r.steps for r in spec) / max(rounds, 1),
+            spec_loops=sorted({r.loop for r in spec}), spec_replays=sum(r.replays for r in spec),
+            spec_bodies=sum(r.bodies for r in spec), spec_captures=sum(r.captures for r in spec),
+            spec_capture_s=sum(r.capture_s for r in spec),
         )  # fmt: skip
     if kw.get("word_timestamps"):
         if aligned == 0:
@@ -2629,54 +2758,101 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+SPEC_VARIANTS = ("captured", "body", "eager")
+
+
+def spec_engine(model, draft, k, variant):
+    """A speculative engine running its loop as `variant`: "captured" (the
+    round replayed from its graph), "body" (the same round run eagerly on
+    the card) or "eager" (the host loop the mesh's engine keeps, a host read
+    of every row's n, draft position and done flag a round)."""
+    spec = SpeculativeEngine(model, draft, k=k)
+    spec.capture = variant == "captured"
+    spec.eager_loop = variant == "eager"
+    return spec
+
+
 def spec_bracket(model, draft, window, only_token=None, k=4, reps=2):
-    """The plain engine and the speculative engine (draft `draft`, K = k) on
-    one greedy window at T = 0: each run once untimed, then `reps` timed
-    runs of each, alternating, and the median wall reported (reps = 1: no
-    untimed run, for the float32 gate, whose point is the tokens). With
-    `only_token`, every other id is suppressed and timestamps are off: every
-    draft is accepted (the upper bracket); else the window decodes as
-    transcribe() would (timestamps on). The counts are set to 0 just before
-    each timed speculative run and checked after it: one scalar greedy
-    launch (step 0) and one per-row launch per draft step and per verify
-    round."""
+    """The plain captured engine and the speculative engine (draft `draft`,
+    K = k) on one greedy window at T = 0, its loop captured, uncaptured
+    (the round body run eagerly) and the eager host loop. The plain engine
+    and the captured round run once untimed (their graphs), then `reps`
+    timed runs each; the uncaptured body and the eager loop, dispatch-bound,
+    one timed run each. With `only_token`, every other id is suppressed and
+    timestamps are off: every draft is accepted (the upper bracket); else
+    the window decodes as transcribe() would (timestamps on). The counts
+    are set to 0 just before each timed run and must equal its record
+    (engine_want). The captured round's outputs must equal the uncaptured
+    body's. Then one more captured run with each replay between two CUDA
+    events (watch_graph_replays): the graph's span on the card a replay
+    and a token, the host ms of a replay's call, and the share of that
+    run's wall outside the graphs. Returns (stats, the captured engine's
+    arguments)."""
     opts = DecodingOptions(language="en", temperature=0.0, without_timestamps=only_token is not None)
     (args, kw), _ = engine_call(model, window, opts)
     if only_token is not None:
         kw = dict(kw, suppress_ids=[i for i in range(model.dims.n_vocab) if i != only_token],
                   blank_ids=[])  # fmt: skip
     _, dck, dcv = draft.encode_with_cross_kv(window[None])
-    plain, spec = FusedEngine(model), SpeculativeEngine(model, draft, k=k)
-    if reps > 1:
-        plain.run(*args, **kw)
-        spec.run(*args, dck, dcv, **kw)
-    p_walls, s_walls = [], []
-    for _ in range(reps):
-        p_out, p_wall = timed(lambda: plain.run(*args, **kw))
-        reset_launch_counts()
-        s_out, s_wall = timed(lambda: spec.run(*args, dck, dcv, **kw))
-        counts = launch_counts()
-        launches, draft_steps, rounds, decoded, _ = spec.history[-1]
-        want = dict(dict.fromkeys(launch_counts(), 0), greedy_argmax=1,
-                    greedy_argmax_rows=draft_steps + rounds)  # fmt: skip
-        if counts != want or launches != 1 + draft_steps + rounds:
-            raise AssertionError(f"speculative run: launches {counts} != {want}")
-        p_walls.append(p_wall)
-        s_walls.append(s_wall)
-    p_wall, s_wall = statistics.median(p_walls), statistics.median(s_walls)
-    steps = plain.history[-1][2]
-    n, ni = int(p_out[1]), args[0].shape[-1]  # decoded tokens from ni
-    stats = spec.last_stats
-    return dict(
-        k=k, tokens_equal=int(s_out[1]) == n and bool(np.array_equal(s_out[0], p_out[0])),
-        common_prefix=common_prefix(s_out[0][0, ni:n], p_out[0][0, ni : int(s_out[1])]),
-        plain_steps=steps, plain_wall_s=p_wall, plain_ms_per_token=p_wall / steps * 1e3,
-        spec_tokens=decoded, rounds=rounds, draft_steps=draft_steps,
-        acceptance=stats["draft_acceptance"][0], tokens_per_round=decoded / max(rounds, 1),
-        spec_wall_s=s_wall, spec_ms_per_token=s_wall / decoded * 1e3,
-        speedup=(p_wall / steps) / (s_wall / decoded), launches=counts, warm_up=reps > 1,
-        plain_wall_s_runs=p_walls, spec_wall_s_runs=s_walls,
-    ), (spec, args, dck, dcv, kw)
+    engines = {"plain": FusedEngine(model), **{v: spec_engine(model, draft, k, v) for v in SPEC_VARIANTS}}
+
+    def run(name):
+        engine = engines[name]
+        return engine.run(*args, **kw) if name == "plain" else engine.run(*args, dck, dcv, **kw)
+
+    run("plain")
+    run("captured")
+    outs, walls, records, counts = {}, {}, {}, {}
+    for rep in range(reps):
+        for name in engines:
+            if rep and name in ("body", "eager"):
+                continue
+            reset_launch_counts()
+            outs[name], wall = timed(lambda: run(name))
+            records[name] = engines[name].history[-1]
+            counts[name] = launch_counts()
+            want = engine_want([records[name]]) if name == "plain" else engine_want([], spec=[records[name]])
+            if counts[name] != want:
+                raise AssertionError(f"{name} run: launches {counts[name]} != its record's {want}")
+            walls.setdefault(name, []).append(wall)
+    ni = args[0].shape[-1]  # decoded tokens from ni
+
+    def tokens(out):
+        return out[0][0, ni : int(out[1])]
+
+    cap = outs["captured"]
+    if not all(np.array_equal(a, b) for a, b in zip(cap, outs["body"])):
+        raise AssertionError("the captured round's outputs differ from the uncaptured body's")
+    # one more captured run, each replay between two CUDA events
+    with watch_graph_replays() as seen:
+        _, watched_wall = timed(lambda: run("captured"))
+    graph_ms = sum(a.elapsed_time(b) for _, a, b in seen)
+    n_tok = engines["captured"].history[-1].steps
+    replay_stats = dict(
+        watched_wall_s=watched_wall, graph_ms_per_replay=graph_ms / len(seen),
+        host_ms_per_replay_call=sum(h for h, _, _ in seen) / len(seen) * 1e3,
+        graph_ms_per_token=graph_ms / n_tok, graph_idle_share=1 - graph_ms / (watched_wall * 1e3),
+    )  # fmt: skip
+    stats = dict(k=k, tokens=int(cap[1]) - ni)
+    for name in engines:
+        rec, wall = records[name], statistics.median(walls[name])
+        steps = rec.steps
+        row = dict(wall_s=wall, wall_s_runs=walls[name], ms_per_token=wall / steps * 1e3, tokens=steps,
+                   launches=counts[name], tokens_equal_captured=bool(
+                       int(outs[name][1]) == int(cap[1]) and np.array_equal(outs[name][0], cap[0])),
+                   common_prefix_captured=common_prefix(tokens(outs[name]), tokens(cap)))  # fmt: skip
+        if name != "plain":
+            row.update(
+                rounds=rec.rounds, draft_steps=rec.draft_steps, replays=rec.replays,
+                bodies=rec.bodies, captures=rec.captures, capture_s=rec.capture_s,
+                done_reads=rec.done_reads, program=rec.program,
+                tokens_per_round=steps / max(rec.rounds, 1),
+                acceptance=engines[name].last_stats["draft_acceptance"][0],
+            )  # fmt: skip
+        stats[name] = row
+    stats["captured"].update(replay_stats)
+    stats["speedup_captured"] = stats["plain"]["ms_per_token"] / stats["captured"]["ms_per_token"]
+    return stats, (engines["captured"], args, dck, dcv, kw)
 
 
 def common_prefix(a, b) -> int:
@@ -2685,50 +2861,42 @@ def common_prefix(a, b) -> int:
     return int(diff[0]) if len(diff) else n
 
 
-def spec_profile(spec, args, dck, dcv, kw, sample_len=24):
-    """One profiled speculative run (sample_len tokens): per round, the
-    profiled wall, the device-busy time (the union of the kernels'
-    intervals) and idle share, and the kernels; per range of the loop
-    (draft step, verify pass, the round's read), its host ms and the device
-    ms of the kernels inside its span on the card's timeline."""
+def spec_profile(spec, args, dck, dcv, kw, sample_len):
+    """One profiled run of the captured speculative engine (sample_len
+    tokens; its graphs captured by an unprofiled run of the same key just
+    before): between the first and the last greedy launch (step 0's scalar
+    launch, the last replay's verify launch), per replayed round the
+    device-busy ms (the union of the kernels' intervals), the span on the
+    card's timeline, the idle share of that span and the kernels; the host
+    ms of a replay's call ("spec_round") and of a done read ("spec_read");
+    and the greedy launches in the trace against the run's record."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(kw, sample_len=sample_len)
+    spec.run(*args, dck, dcv, **kw)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         spec.run(*args, dck, dcv, **kw)
         torch.cuda.synchronize()
-    host, device, spans = {}, {}, []
+    run = spec.history[-1]
+    if run.captures or not run.replays:
+        raise AssertionError(f"the profiled speculative run did not replay its graph: {run}")
+    span = busy_between_updates(prof, "greedy_argmax_kernel")
+    passes = run.replays + run.bodies
+    if span["steps"] + 1 != run.launches:
+        raise AssertionError(f"the trace holds {span['steps'] + 1} greedy launches, the record {run}")
+    host = {}
     for e in prof.events():
-        cuda = e.device_type == torch.autograd.DeviceType.CUDA
-        if e.name.startswith("spec_"):  # a range: on the host, and its span on the card
-            (device if cuda else host).setdefault(e.name, []).append(e.time_range)
-        elif cuda:
-            spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-
-    def busy_us(lo, hi):
-        busy, end = 0.0, lo
-        for start, stop in spans:
-            start, stop = max(start, end), min(stop, hi)
-            if stop > start:
-                busy, end = busy + stop - start, stop
-        return busy
-
-    reads = host["spec_read"]
-    lo, hi = min(r.start for r in reads), max(r.end for r in reads)
-    rounds = spec.history[-1][2]
-    busy = busy_us(lo, hi)
-    out = dict(
-        sample_len=sample_len, rounds=rounds, draft_steps=spec.history[-1][1],
-        profiled_ms_per_round=(hi - lo) / rounds / 1e3,
-        device_busy_ms_per_round=busy / rounds / 1e3, device_idle_share=1 - busy / (hi - lo),
-        kernels_per_round=sum(lo <= a < hi for a, _ in spans) / rounds,
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in ("spec_round", "spec_read"):
+            host.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    width = span["hi"] - span["lo"]
+    return dict(
+        sample_len=sample_len, tokens=run.steps, rounds=run.rounds, draft_steps=run.draft_steps,
+        replays=run.replays, device_busy_ms_per_round=span["busy_us"] / passes / 1e3,
+        span_ms_per_round=width / passes / 1e3, idle_share_of_span=1 - span["busy_us"] / width,
+        kernels_per_replay=span["kernels"] / passes, greedy_launch_device_ms=span["update_us"] / 1e3,
+        **{f"host_ms_{k[5:]}": statistics.mean(v) / 1e3 for k, v in host.items()},
     )  # fmt: skip
-    for name, rs in host.items():
-        out[f"host_ms_{name[5:]}"] = statistics.mean(r.elapsed_us() for r in rs) / 1e3
-    for name, rs in device.items():
-        out[f"device_ms_{name[5:]}"] = statistics.mean(busy_us(r.start, r.end) for r in rs) / 1e3
-    return out
 
 
 def decoder_weight_bytes(model):
@@ -2865,12 +3033,14 @@ def int8_card_vs_cpu(f32_model, audio):
 def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
     """5g. The decoder weight bytes of each weights mode (int8's loop
     profiles run beside phase 6's); the speculative engine (bf16 draft
-    `draft`) against the plain engine on one window, a random draft (the
-    lower bracket) and a one-token vocabulary (every draft accepted, the
-    upper bracket), in bf16 (timed, agreement recorded) and at float32
-    (tokens equal, the gate), and one profiled speculative run;
-    transcribe() of the clip and a ContinuousBatcher(slots=2) round with a
-    draft at float32, equal to the plain ones (the gate)."""
+    `draft`) on one window, captured, uncaptured and the eager loop,
+    against the plain engine (spec_bracket), a random draft (the lower
+    bracket) and a one-token vocabulary (every draft accepted, the upper
+    bracket), in bf16 (the captured outputs equal the uncaptured body's)
+    and at float32 (tokens equal, the gate), and one profiled captured run
+    per draft (spec_profile); transcribe() of the clip and a
+    ContinuousBatcher(slots=2) round with a draft at float32, equal to the
+    plain ones (the gate)."""
     log(json.dumps({"phase": "int8_weights", **decoder_weight_bytes(model), "card": card}))
     t = time.perf_counter()
     log(json.dumps({"phase": "int8_card_vs_cpu", **int8_card_vs_cpu(f32_model, audio),
@@ -2879,22 +3049,21 @@ def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
     f32_draft = spec_draft(torch.float32)
     window = first_window(model, audio)
     only = 1000  # a text id: every other id suppressed
-    for name, kw in [("random_draft", {}), ("all_accepted", dict(only_token=only))]:
+    for name, kw, profiled in [("random_draft", {}, 24), ("all_accepted", dict(only_token=only), 48)]:
         stats, run = spec_bracket(model, draft, window, **kw)
+        prof = spec_profile(*run, sample_len=profiled)
+        cap = stats["captured"]
         log(json.dumps({"phase": "spec", "bracket": name, "dtype": "bf16", **stats, "card": card}))
-        full = -(-(stats["spec_tokens"] - 1) // (stats["k"] + 1))  # every round K + 1 tokens
-        if name == "all_accepted" and stats["rounds"] != full:
-            raise AssertionError(f"the one-token vocabulary took {stats['rounds']} rounds, not {full}")
-        if name == "random_draft":
-            log(json.dumps({"phase": "spec_profile", "bracket": name, **spec_profile(*run),
-                            "card": card}))  # fmt: skip
-        f32_stats, _ = spec_bracket(
-            f32_model, f32_draft, first_window(f32_model, audio), reps=1, **kw
-        )
+        log(json.dumps({"phase": "spec_profile", "bracket": name, **prof, "card": card}))
+        full = -(-(stats["tokens"] - 1) // (stats["k"] + 1))  # every round K + 1 tokens
+        if name == "all_accepted" and cap["rounds"] != full:
+            raise AssertionError(f"the one-token vocabulary took {cap['rounds']} rounds, not {full}")
+        f32_stats, _ = spec_bracket(f32_model, f32_draft, first_window(f32_model, audio), **kw)
         log(json.dumps({"phase": "spec", "bracket": name, "dtype": "float32", **f32_stats,
                         "card": card}))  # fmt: skip
-        if not f32_stats["tokens_equal"]:
-            raise AssertionError(f"{name} at float32: speculative tokens differ from plain greedy")
+        differ = [v for v in ("plain", *SPEC_VARIANTS) if not f32_stats[v]["tokens_equal_captured"]]
+        if differ:
+            raise AssertionError(f"{name} at float32: the captured round's tokens differ from {differ}")
     log(json.dumps({"phase": "spec_brackets", "seconds": time.perf_counter() - t}))
     t = time.perf_counter()
 
@@ -3535,7 +3704,7 @@ def train_card_vs_cpu():
         counts = launch_counts()
     finally:
         gpu.set_draft_model(None)
-    if spec.tokens != plain.tokens or not counts["greedy_argmax_rows"]:
+    if spec.tokens != plain.tokens or not counts["greedy_argmax_rows_state"]:
         raise AssertionError(f"float32: the distilled draft's tokens differ ({counts})")
     return dict(
         grad_max_abs_err=worst, loss=losses, finetune_losses=ft, distill_losses=dl,
@@ -3602,7 +3771,7 @@ def train_phase(model, jfk, card):
     dl, dl_counts = distill_phase(model, jfk)
     log(json.dumps({"phase": "train_distill", **dl, "launches": dl_counts, "card": card}))
     counts = {k: ft_counts[k] + dl_counts[k] for k in ft_counts}
-    if not counts["greedy_argmax"] or not counts["greedy_argmax_rows"]:
+    if not counts["greedy_argmax"] or not counts["greedy_argmax_rows_state"]:
         raise AssertionError(f"the train phase launched a greedy kernel no time: {counts}")
     log(json.dumps({"phase": "train", "seconds": time.perf_counter() - t, "launches": counts}))
     return counts
@@ -3857,9 +4026,9 @@ def parallel_phase(audio, jfk, card):
         add_counts(counts, r["launches"])
         log(json.dumps({"phase": "parallel_world2_gloo", "rank": rank, **r, "card": card}))
     log(json.dumps({"phase": "parallel", "seconds_world2": time.perf_counter() - t, "launches": counts}))
-    # the mesh's engines keep the eager host loop: scalar launches, no
-    # loop-state launch
-    state = ("greedy_argmax_state", "beam_update_state")
+    # the mesh's engines keep the eager host loop: scalar and per-row
+    # launches, no loop-state launch
+    state = ("greedy_argmax_state", "beam_update_state", "greedy_argmax_rows_state")
     missing = [k for k, n in counts.items() if n == 0 and k not in state]
     if missing or any(counts[k] for k in state):
         raise AssertionError(f"the mesh runs launched {missing} no time, or a loop-state launch: {counts}")
@@ -4428,7 +4597,8 @@ def run_phases():
 
     kernels = {
         "greedy_argmax": check_greedy(), "greedy_argmax_rows": check_greedy_rows(),
-        "greedy_argmax_state": check_greedy_state(), "beam_update": check_beam(),
+        "greedy_argmax_state": check_greedy_state(),
+        "greedy_argmax_rows_state": check_greedy_rows_state(), "beam_update": check_beam(),
         "beam_update_state": check_beam_state(), "dtw_trace": check_dtw(),
         "median_filter": check_median(),
     }  # fmt: skip
@@ -4505,12 +4675,14 @@ def run_phases():
     add_serving(servers_phase(model, jfk, card))
     log(json.dumps({"phase": "serving", "seconds": time.perf_counter() - t, "launches": serving}))
     clock("serving")
+    speculative = ("greedy_argmax_rows", "greedy_argmax_rows_state")  # no draft in serving
     if batcher_counts["beam_update"] == 0 or any(
-        n == 0 for k, n in serving.items() if k != "greedy_argmax_rows"
+        n == 0 for k, n in serving.items() if k not in speculative
     ):
         raise AssertionError(f"streaming and serving launched a kernel no time: {serving}, 5e {batcher_counts}")
+    # the per-row launch without the loop state is the mesh's (parallel phase)
     for name, n in launches.items():
-        if n == 0:
+        if n == 0 and name != "greedy_argmax_rows":
             raise AssertionError(f"the main path never launched {name}")
     t = time.perf_counter()
     f32_model = Whisper(dims, None, device="cuda", compute_dtype=torch.float32, seed=0)
@@ -4539,11 +4711,15 @@ def run_phases():
     clock("train_profile")
     add_counts(launches, export_runtime_phase(model, jfk, card))
     clock("export_runtime")
+    for name in kernels:
+        if not launches.get(name):
+            raise AssertionError(f"the smoke's runs never launched {name}: {launches}")
 
     source = {
         "greedy_argmax": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "greedy_argmax_rows": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "greedy_argmax_state": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
+        "greedy_argmax_rows_state": ("greedy_argmax.cu", "whisper_tpu/ops/beam_kernel.py:627"),
         "beam_update": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
         "beam_update_state": ("beam_update.cu", "whisper_tpu/ops/beam_kernel.py:449"),
         "dtw_trace": ("dtw.cu", "whisper_tpu/ops/pallas_kernels.py:138"),
@@ -4558,7 +4734,7 @@ def run_phases():
                 "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r.get("library_ms"),
                 **{k: r[k] for k in ("cluster", "call_ms", "empty_ms", "chain_floor_ms", "rows_ms",
-                                     "scalar_ms") if k in r},
+                                     "scalar_ms", "state_ms") if k in r},
             }  # fmt: skip
             for name, r in kernels.items()
         ]

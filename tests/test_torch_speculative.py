@@ -27,6 +27,7 @@ from whisper_tpu.quant import quantize_cross_kv as jax_quantize_cross_kv
 from whisper_tpu.quant import quantize_decoder as jax_quantize_decoder
 from whisper_tpu.speculative import SpeculativeEngine as JaxSpeculativeEngine
 from whisper_tpu.tokenizer import get_tokenizer
+from whisper_tpu_torch import engine as eng_module
 from whisper_tpu_torch.engine import FusedEngine
 from whisper_tpu_torch.models import graphs
 from whisper_tpu_torch.models.dims import ModelDimensions
@@ -270,10 +271,11 @@ def test_spec_matches_jax_spec(tpu_model, torch_model, drafts, mel, which):
     np.testing.assert_allclose(got[2], np.asarray(want[2]), rtol=0, atol=2e-3)
     np.testing.assert_allclose(got[3], np.asarray(want[3]), rtol=0, atol=1e-5)
     assert eng.last_stats == jeng.last_stats
-    launches, draft_steps, rounds, decoded, _ = eng.history[-1]
-    assert launches == draft_steps + rounds + 1  # greedy updates: drafts, verifies, step 0
-    assert rounds == max(eng.last_stats["rounds"])
-    assert decoded == max(eng.last_stats["emitted"]) == int(got[1]) - initial.shape[1]
+    run = eng.history[-1]
+    # greedy updates: step 0, then K + 1 draft launches and one verify launch a round pass
+    assert run.launches == 1 + (run.k + 2) * (run.replays + run.bodies)
+    assert run.rounds == max(eng.last_stats["rounds"])
+    assert run.steps == max(eng.last_stats["emitted"]) == int(got[1]) - initial.shape[1]
 
 
 # ---- the JAX package's contract, held in the port -----------------------------
@@ -392,8 +394,11 @@ def test_acceptance_stats(torch_model, draft_model, mel):
     out = eng.run(initial, ck, cv, ck, cv, **base)
     assert eng.last_stats == {"rounds": [3], "emitted": [13], "draft_acceptance": [1.0], "k": 3}
     assert int(out[1]) == initial.shape[1] + 13
-    # K draft steps in the first round, K + 1 after a round that accepted all
-    assert eng.history[-1][:3] == (1 + 11 + 3, 3 + 4 + 4, 3)
+    # K live draft steps in the first round, K + 1 after a round that accepted
+    # all; the round body ran once a round and DONE_LAG times after the finish
+    run = eng.history[-1]
+    assert (run.draft_steps, run.rounds) == (3 + 4 + 4, 3)
+    assert run.bodies == 3 + eng_module.DONE_LAG and run.launches == 1 + (3 + 2) * run.bodies
     eng2 = SpeculativeEngine(torch_model, draft_model, k=3)
     eng2.run(initial, ck, cv, dck, dcv, **base)
     assert eng2.last_stats["emitted"] == [13] and eng2.last_stats["rounds"][0] >= 3

@@ -40,17 +40,26 @@
 // barrier, before any store of a result: a replay after every row is done
 // writes nothing. CTA 0 adds one to `launches`, a device counter, whether
 // live or not: the count of the launches a captured graph really made.
+//
+// Per-row lengths at the loop state (wtt_greedy_argmax_rows_state, the
+// captured speculative round's draft and verify launches): each row's length
+// comes from the per-row array as in the kRows form, and sample_begin and
+// live from the round's LoopState array, loaded at entry. When live is 0
+// every CTA returns at the cluster barrier, as above, and CTA 0 counts the
+// launch on its own device counter.
 #include "update_common.cuh"
 
 namespace wtt {
 
 // kLen: kScalarLen, every row at n_tokens; kRowLens, row r's length is
 // lens[r] (the speculative engine's draft steps and verify pass);
-// kStateLens, lens is the loop's LoopState array.
+// kStateLens, lens is the loop's LoopState array; kRowStateLens, row r's
+// length is lens[r] and `state` is the LoopState array (sample_begin, live).
 template <int W, int kLen>
 __global__ void __launch_bounds__(kThreads)
 greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ tokens,
-                     const int* __restrict__ lens, const float* __restrict__ suppress,
+                     const int* __restrict__ lens, const int* __restrict__ state,
+                     const float* __restrict__ suppress,
                      const float* __restrict__ begin, int* __restrict__ out_tok,
                      float* __restrict__ out_lp, unsigned long long* __restrict__ launches,
                      int V, int T, int n_tokens, int sample_begin, int use_ts, int eot,
@@ -62,6 +71,12 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
     loop_live = __ldg(lens + kLive);
     if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
   }
+  if constexpr (kLen == kRowStateLens) {
+    sample_begin = __ldg(state + kSampleBegin);
+    loop_live = __ldg(state + kLive);
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
+  }
+  constexpr bool kRows = kLen == kRowLens || kLen == kRowStateLens;
   __shared__ TsFlags flags;
   __shared__ Scratch<1> scratch;
   __shared__ Sweep<1> parts[kMaxCluster];  // rank 0's: the chunks' partials
@@ -74,12 +89,12 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
 
   int lo, hi;
   chunk_bounds<W>(V, C, c, lo, hi);
-  const float* beg = kLen == kRowLens || n_tokens == sample_begin ? begin : nullptr;
+  const float* beg = kRows || n_tokens == sample_begin ? begin : nullptr;
   RowSrc src{logits + (size_t)row * V, suppress, beg};
-  sweep_chunk<1, W, kLen == kRowLens>(src, tokens + (size_t)row * T, n_tokens, sample_begin,
-                                      use_ts, eot, ts_begin, use_ts ? ts_begin : V, lo, hi,
-                                      flags, scratch, cluster.map_shared_rank(&parts[c], 0),
-                                      kLen == kRowLens ? lens + row : nullptr, T);
+  sweep_chunk<1, W, kRows>(src, tokens + (size_t)row * T, n_tokens, sample_begin, use_ts, eot,
+                           ts_begin, use_ts ? ts_begin : V, lo, hi, flags, scratch,
+                           cluster.map_shared_rank(&parts[c], 0), kRows ? lens + row : nullptr,
+                           T);
   cluster_arrive();
   cluster_wait();
   if (!loop_live) return;  // every CTA of the cluster read the same flag
@@ -97,15 +112,15 @@ greedy_argmax_kernel(const float* __restrict__ logits, const int* __restrict__ t
 }
 
 template <int W, int kLen>
-int launch_greedy(const float* logits, const int* tokens, const int* lens,
+int launch_greedy(const float* logits, const int* tokens, const int* lens, const int* state,
                   const float* suppress, const float* begin, int* out_tok, float* out_lp,
                   unsigned long long* launches, int B, int V, int T, int n_tokens,
                   int sample_begin, int use_ts, int eot, int ts_begin, cudaStream_t stream) {
   int C = fit_chunks<greedy_argmax_kernel<W, kLen>>(1);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)launch_clusters(greedy_argmax_kernel<W, kLen>, B * C, C, stream, logits, tokens,
-                              lens, suppress, begin, out_tok, out_lp, launches, V, T, n_tokens,
-                              sample_begin, use_ts, eot, ts_begin);
+                              lens, state, suppress, begin, out_tok, out_lp, launches, V, T,
+                              n_tokens, sample_begin, use_ts, eot, ts_begin);
 }
 
 }  // namespace wtt
@@ -117,8 +132,8 @@ extern "C" int wtt_greedy_argmax(const float* logits, const int* tokens, const f
   auto launch = wtt::pair_loads(V, logits, suppress, begin)
                     ? wtt::launch_greedy<2, wtt::kScalarLen>
                     : wtt::launch_greedy<1, wtt::kScalarLen>;
-  return launch(logits, tokens, nullptr, suppress, begin, out_tok, out_lp, nullptr, B, V, T,
-                n_tokens, sample_begin, use_ts, eot, ts_begin, stream);
+  return launch(logits, tokens, nullptr, nullptr, suppress, begin, out_tok, out_lp, nullptr, B, V,
+                T, n_tokens, sample_begin, use_ts, eot, ts_begin, stream);
 }
 
 // Per-row lengths: row r of the (B, T) history is at length n_rows[r].
@@ -129,8 +144,8 @@ extern "C" int wtt_greedy_argmax_rows(const float* logits, const int* tokens, co
   auto launch = wtt::pair_loads(V, logits, suppress, begin)
                     ? wtt::launch_greedy<2, wtt::kRowLens>
                     : wtt::launch_greedy<1, wtt::kRowLens>;
-  return launch(logits, tokens, n_rows, suppress, begin, out_tok, out_lp, nullptr, B, V, T, 0,
-                sample_begin, use_ts, eot, ts_begin, stream);
+  return launch(logits, tokens, n_rows, nullptr, suppress, begin, out_tok, out_lp, nullptr, B, V,
+                T, 0, sample_begin, use_ts, eot, ts_begin, stream);
 }
 
 // Loop state: n_tokens, sample_begin and the live flag read from
@@ -144,8 +159,26 @@ extern "C" int wtt_greedy_argmax_state(const float* logits, const int* tokens, c
   auto launch = wtt::pair_loads(V, logits, suppress, begin)
                     ? wtt::launch_greedy<2, wtt::kStateLens>
                     : wtt::launch_greedy<1, wtt::kStateLens>;
-  return launch(logits, tokens, state, suppress, begin, out_tok, out_lp, launches, B, V, T, 0, 0,
-                use_ts, eot, ts_begin, stream);
+  return launch(logits, tokens, state, nullptr, suppress, begin, out_tok, out_lp, launches, B, V,
+                T, 0, 0, use_ts, eot, ts_begin, stream);
+}
+
+// Per-row lengths at the loop state: row r of the (B, T) history is at
+// length n_rows[r]; sample_begin and the live flag are read from
+// state[kSampleBegin] and state[kLive]; nothing is written when live is 0.
+// Each launch adds one to *launches (a device counter).
+extern "C" int wtt_greedy_argmax_rows_state(const float* logits, const int* tokens,
+                                            const int* n_rows, const int* state,
+                                            const float* suppress, const float* begin,
+                                            int* out_tok, float* out_lp,
+                                            unsigned long long* launches, int B, int V, int T,
+                                            int use_ts, int eot, int ts_begin,
+                                            cudaStream_t stream) {
+  auto launch = wtt::pair_loads(V, logits, suppress, begin)
+                    ? wtt::launch_greedy<2, wtt::kRowStateLens>
+                    : wtt::launch_greedy<1, wtt::kRowStateLens>;
+  return launch(logits, tokens, n_rows, state, suppress, begin, out_tok, out_lp, launches, B, V,
+                T, 0, 0, use_ts, eot, ts_begin, stream);
 }
 
 // Chunks per row (the cluster size) that the greedy kernel uses on the

@@ -37,9 +37,11 @@ constexpr int kUnroll = 8;       // load units in flight per thread
 constexpr int kMaxCluster = 16;  // the largest (non-portable) cluster on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
-// Where a launch reads its lengths: scalar arguments, a per-row array, or
-// the decode loop's state array on the device.
-enum { kScalarLen = 0, kRowLens = 1, kStateLens = 2 };
+// Where a launch reads its lengths: scalar arguments, a per-row array, the
+// decode loop's state array on the device, or a per-row array with the first
+// sampled position and the live flag from the state array (the speculative
+// round's launches).
+enum { kScalarLen = 0, kRowLens = 1, kStateLens = 2, kRowStateLens = 3 };
 
 // The decode loop's state, a device int32 array the captured loop advances
 // (whisper_tpu_torch/engine.py): the tokens so far, the first sampled

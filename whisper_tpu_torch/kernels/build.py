@@ -34,6 +34,7 @@ _SIGNATURES = {
     "wtt_greedy_argmax": [_P] * 6 + [_I] * 8 + [_P],
     "wtt_greedy_argmax_rows": [_P] * 7 + [_I] * 7 + [_P],
     "wtt_greedy_argmax_state": [_P] * 8 + [_I] * 6 + [_P],
+    "wtt_greedy_argmax_rows_state": [_P] * 9 + [_I] * 6 + [_P],
     "wtt_beam_update": [_P] * 12 + [_I] * 11 + [_P],
     "wtt_beam_update_state": [_P] * 14 + [_I] * 8 + [_P],
     "wtt_greedy_argmax_chunks": [_I],

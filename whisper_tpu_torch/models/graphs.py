@@ -518,7 +518,10 @@ def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=No
 
 def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, width=None, tp=None, sp=None):
     """K tokens per row at per-row cache slots, in one pass (the
-    speculative engine's draft step at K = 1 and its verify pass).
+    speculative engine's draft step at K = 1 and its verify pass). With a
+    host-int `width` nothing in it reads the device from the host, so the
+    captured speculative round runs it at a fixed window: the cache's
+    width, its program's last window.
 
     tokens_k: (B, K) int — row b's tokens at positions pos[b] .. pos[b]+K-1
     pos:      (B,) int tensor — the first slot the chunk writes (the row's
@@ -529,7 +532,9 @@ def decode_chunk(dec, tokens_k, pos, cache, ck, cv, *, n_head, active=None, widt
     ck/cv:    (L, Bc, H, dh, T) or int8 pairs, B % Bc == 0
     active:   (B,) bool or None — rows with False write nothing; their
               logits are computed and must be ignored
-    width:    a host int >= max(pos): the cache slots attended (None reads
+    width:    a host int >= max(pos), at most C: the cache slots attended,
+              those at or past pos[b] masked (the eager loop's host-known
+              max(pos), or the captured round's window C; None reads
               max(pos) from the device)
     tp, sp:   process groups, as in `prefill` (the cache holds d / tp)
 

@@ -15,7 +15,10 @@ The loop scalars (n_tokens, sample_begin, step) are host ints, or 0-d /
 (1,) int32 tensors on the logits' device: the captured decode loop keeps
 them in a device array, the loop state (`N_TOKENS`, `SAMPLE_BEGIN`, `STEP`,
 `LIVE`), which `greedy_argmax_state` and `beam_update_state` read on the
-card. There `live` = 0 (every row done) makes the update write nothing.
+card; the captured speculative round's `greedy_argmax_rows_state` reads
+per-row lengths from a (B,) array and `SAMPLE_BEGIN` and `LIVE` from its
+round's state array. There `live` = 0 (every row done) makes the update
+write nothing.
 """
 
 import numpy as np
@@ -203,6 +206,15 @@ def beam_update_plain(
     return new_tokens, new_src.to(torch.int32), new_scores
 
 
+def _store_if_live(state, outs, values):
+    """The plain loop-state forms' stores: `values` into `outs` where
+    state[LIVE] is not 0, as the kernels write; returns outs."""
+    live = state[LIVE] != 0
+    for out, value in zip(outs, values):
+        out.copy_(torch.where(live, value, out))
+    return outs
+
+
 # ---- kernels ---------------------------------------------------------------
 
 
@@ -224,33 +236,39 @@ def _launch_check(rc, name):
 
 # The loop-state launches are counted on the card, by the kernels: CTA 0 of
 # each launch adds one to its kernel's counter, so the replays of a captured
-# graph, which make no Python call, count as the launches they are. One
-# (greedy, beam) int64 pair per device.
+# graph, which make no Python call, count as the launches they are. One int64
+# per loop-state launch and device, in STATE_KERNELS' order.
+STATE_KERNELS = ("greedy_argmax_state", "beam_update_state", "greedy_argmax_rows_state")
 _STATE_COUNTERS = {}
 
 
-def _state_counter(dev, which):
-    """The address of dev's counter of the greedy (0) or beam (1) loop-state
-    kernel, made at the first uncaptured launch: a zeroing made while a
-    stream is captured would be recorded into the graph."""
+def state_counters(dev):
+    """dev's (len(STATE_KERNELS),) int64 counters, made at the first call
+    outside a capture: a zeroing made while a stream is captured would be
+    recorded into the graph."""
     counters = _STATE_COUNTERS.get(dev.index)
     if counters is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("launch the loop-state kernels once before capturing them")
         with torch.inference_mode(False):  # a normal tensor: reset outside inference mode too
-            counters = _STATE_COUNTERS[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+            counters = torch.zeros(len(STATE_KERNELS), dtype=torch.int64, device=dev)
+            _STATE_COUNTERS[dev.index] = counters
+    return counters
+
+
+def _state_counter(dev, which):
+    """The address of dev's counter of STATE_KERNELS[which]."""
+    counters = state_counters(dev)
     return counters.data_ptr() + counters.element_size() * which
 
 
 def state_launches():
     """The loop-state kernels' launches since the last reset, read from the
-    cards' counters (a synchronizing read): greedy_argmax_state and
-    beam_update_state."""
-    greedy = beam = 0
+    cards' counters (a synchronizing read), by name (STATE_KERNELS)."""
+    total = [0] * len(STATE_KERNELS)
     for counters in _STATE_COUNTERS.values():
-        g, b = counters.tolist()
-        greedy, beam = greedy + g, beam + b
-    return {"greedy_argmax_state": greedy, "beam_update_state": beam}
+        total = [a + b for a, b in zip(total, counters.tolist())]
+    return dict(zip(STATE_KERNELS, total))
 
 
 def greedy_argmax(
@@ -330,10 +348,7 @@ def greedy_argmax_state(
         tok, lp = greedy_argmax_plain(
             logits, tokens, state[N_TOKENS], state[SAMPLE_BEGIN], suppress_pen, begin_pen, **kw
         )
-        live = state[LIVE] != 0
-        tok_out.copy_(torch.where(live, tok, tok_out))
-        lp_out.copy_(torch.where(live, lp, lp_out))
-        return tok_out, lp_out
+        return _store_if_live(state, (tok_out, lp_out), (tok, lp))
     if logits.device.type != "cuda":
         raise ValueError(f"greedy_argmax_state runs on CUDA or CPU tensors, not {logits.device}")
     B, V = logits.shape
@@ -352,6 +367,49 @@ def greedy_argmax_state(
         V, T, int(use_timestamps), eot, timestamp_begin, torch.cuda.current_stream(dev).cuda_stream,
     )  # fmt: skip
     _launch_check(rc, "greedy_argmax_state")
+    return tok_out, lp_out
+
+
+def greedy_argmax_rows_state(
+    logits, tokens, n_rows, state, suppress_pen, begin_pen, tok_out, lp_out, *,
+    use_timestamps, eot, timestamp_begin,
+):  # fmt: skip
+    """`greedy_argmax` at per-row lengths inside the captured speculative
+    round: row r's length is n_rows[r] ((B,) int32 on the logits' device),
+    the first sampled position and the live flag are read from `state`
+    ((STATE_LEN,) int32, csrc/update_common.cuh LoopState: SAMPLE_BEGIN and
+    LIVE), the results go into the caller's tok_out (B,) int32 and lp_out
+    (B,) f32, and where state[LIVE] is 0 nothing is written. The host checks
+    read shapes and types only, so a CUDA graph can capture the launch
+    (csrc/greedy_argmax.cu `wtt_greedy_argmax_rows_state`). The kernel
+    counts its launches on the card (`state_launches`). Returns (tok_out,
+    lp_out)."""
+    kw = dict(use_timestamps=use_timestamps, eot=eot, timestamp_begin=timestamp_begin)
+    if logits.device.type == "cpu":
+        tok, lp = greedy_argmax_plain(
+            logits, tokens, n_rows, state[SAMPLE_BEGIN], suppress_pen, begin_pen, **kw
+        )
+        return _store_if_live(state, (tok_out, lp_out), (tok, lp))
+    if logits.device.type != "cuda":
+        raise ValueError(f"greedy_argmax_rows_state runs on CUDA or CPU tensors, not {logits.device}")
+    B, V = logits.shape
+    T = tokens.shape[1]
+    dev = logits.device
+    _check("logits", logits, torch.float32, (B, V), dev)
+    _check("tokens", tokens, torch.int32, (B, T), dev)
+    _check("n_rows", n_rows, torch.int32, (B,), dev)
+    _check("state", state, torch.int32, (STATE_LEN,), dev)
+    _check("suppress_pen", suppress_pen, torch.float32, (V,), dev)
+    _check("begin_pen", begin_pen, torch.float32, (V,), dev)
+    _check("tok_out", tok_out, torch.int32, (B,), dev)
+    _check("lp_out", lp_out, torch.float32, (B,), dev)
+    rc = build.load_library().wtt_greedy_argmax_rows_state(
+        logits.data_ptr(), tokens.data_ptr(), n_rows.data_ptr(), state.data_ptr(),
+        suppress_pen.data_ptr(), begin_pen.data_ptr(), tok_out.data_ptr(), lp_out.data_ptr(),
+        _state_counter(dev, 2), B, V, T, int(use_timestamps), eot, timestamp_begin,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )  # fmt: skip
+    _launch_check(rc, "greedy_argmax_rows_state")
     return tok_out, lp_out
 
 
@@ -445,10 +503,7 @@ def beam_update_state(
             logits, tokens, sum_logprobs, *pools, state[N_TOKENS], state[SAMPLE_BEGIN],
             state[STEP], suppress_pen, begin_pen, live=state[LIVE], **kw,
         )  # fmt: skip
-        live = state[LIVE] != 0
-        for out, value in zip((new_tokens, src, new_lp), got):
-            out.copy_(torch.where(live, value, out))
-        return new_tokens, src, new_lp
+        return _store_if_live(state, (new_tokens, src, new_lp), got)
     if logits.device.type != "cuda":
         raise ValueError(f"beam_update_state runs on CUDA or CPU tensors, not {logits.device}")
     G = n_group

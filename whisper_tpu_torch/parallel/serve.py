@@ -171,6 +171,8 @@ class DataParallelSpeculativeEngine(SpeculativeEngine):
     the whole cross-K/V of both models and returns the single-device
     engine's outputs on every rank."""
 
+    eager_loop = True  # its steps carry the mesh's collectives: not captured
+
     def __init__(self, model, draft_model, mesh, k: int = 4, weights: str = ""):
         self.mesh = mesh
         super().__init__(model, draft_model, k=k, weights=weights)
