@@ -214,29 +214,35 @@ Phases (any failure raises and the script exits non-zero):
      step of the engine's loop; then one turbo train step at batch 2 (wall,
      device-busy ms, idle share, kernels, the five longest by name);
   export. torch.export, AOTInductor and the native runner
-     (whisper_tpu_torch/export.py, runtime/aoti.py, csrc/wtt_transcribe.cpp):
-     the runner built with g++ while three pipelines are exported and
-     AOT-compiled at once (tiny float32, tiny int8, turbo bf16; each
-     graph's export and cold-compile seconds, a second load of the turbo
-     encoder from the package cache); at tiny dims on jfk the runner's
-     tokens equal the eager engine's on the same mel bytes (greedy and
-     beam 5 at T = 0, int8 greedy, and the ladder's accepted draw at its
-     temperature and seed), and a pipeline missing one package makes it
-     exit non-zero; each turbo package against the same function run
-     eagerly on the same inputs (max |diff| / max |ref|, step 0's argmax
-     equal, the step's cache written in place, the step packages' device
-     ms and kernels per call); the 60 s clip greedy and beam 5 through the
-     runner at T = 0, its first window against the eager engine (common
-     prefix; where they part, the eager top-two gap) with both ms per
-     token, the runner's ms per token split into the step package's call,
-     the update and the done read; jfk through the runner's ladder, and
-     --serve answering jfk with that run's tokens; then the one-command
-     tool (`python -m whisper_tpu_torch.export_pipeline --checkpoint
-     tiny.npz --no-build`, into the phase's compile cache), whose pipeline
-     gives the runner the tiny float32 pipeline's tokens (its timings.json,
-     with each graph's cached flag, printed). The runner's update launches
-     (once a T = 0 step, counted where it calls the C ABI) count on the
-     main path;
+     (whisper_tpu_torch/export.py, runtime/aoti.py, csrc/wtt_transcribe.cpp,
+     csrc/wtt_graph.cpp): the runner built with g++ while three pipelines
+     are exported and AOT-compiled at once (tiny float32, tiny int8, turbo
+     bf16, each with the step packages at the cache windows 128, 256 and
+     448 that loop.txt names; each graph's export and cold-compile
+     seconds, a second load of the turbo encoder from the package cache);
+     at tiny dims on jfk the captured runner's tokens equal the captured
+     engine's on the same mel bytes over 445 tokens, through every phase
+     (greedy and beam 5 at T = 0, int8 greedy, and the ladder's accepted
+     draw at its temperature and seed), and a pipeline missing one package
+     makes it exit non-zero; each turbo package against the same function
+     run eagerly on the same inputs (max |diff| / max |ref|, step 0's
+     argmax equal, the step's cache written in place, each step package's
+     device ms and kernels per call); the 60 s clip greedy and beam 5
+     through the captured runner at T = 0 and its first window through
+     --no-capture (tokens equal), the first window against the captured
+     engine (common prefix; where they part, the eager top-two gap) with
+     the runner's ms per token, replays, captures and their seconds, done
+     reads and launches beside the engine's first and second runs; jfk
+     through the runner's ladder, and --serve answering jfk twice with that
+     run's tokens, the second request capturing nothing; then the
+     one-command tool (`python -m whisper_tpu_torch.export_pipeline
+     --checkpoint tiny.npz --no-build`, into the phase's compile cache),
+     whose pipeline gives the runner the tiny float32 pipeline's tokens (its
+     timings.json, with each graph's cached flag, printed). Every runner
+     attempt is held to its counts (check_attempt, with loop.txt's done
+     lag): at T = 0 one scalar launch (step 0, counted at the C ABI call)
+     and one loop-state launch a replay or uncaptured pass (counted on the
+     card by the kernel); they count on the main path;
   7. print the engines' captures in this process and their seconds, the
      kernels line, the card's name and power limit, and the result line
      {"ok": true, "device": {...}}.
@@ -4059,11 +4065,39 @@ def runner_lines(stderr):
     return [json.loads(line[6:]) for line in stderr.splitlines() if line.startswith("[wtt] {")]
 
 
+def done_lag(pdir):
+    """The done flag's lag in passes that the pipeline's loop.txt gives the
+    runner (export.loop_manifest)."""
+    with open(os.path.join(pdir, "loop.txt")) as f:
+        (lag,) = [int(line.split()[1]) for line in f if line.startswith("done_lag ")]
+    return lag
+
+
+def check_attempt(a, lag):
+    """A runner attempt's counts: at T = 0 one scalar launch (step 0) and
+    one loop-state launch, counted on the card by the kernel, per replay
+    and per uncaptured pass (capture warm-ups included); none when
+    sampling. A captured run's uncaptured passes are its warm-ups, one a
+    capture; a pass a token after step 0, and at most `lag` (the done
+    lag) after the finish; a done read a pass but the first `lag`."""
+    scalar = a["greedy_launches"] + a["beam_launches"]
+    state = a["greedy_state_launches"] + a["beam_state_launches"]
+    passes = a["replays"] + a["bodies"]
+    t0 = a["temperature"] == 0
+    loop_passes = passes - a["captures"]
+    ok = (scalar == (1 if t0 else 0) and state == (passes if t0 else 0)
+          and (a["bodies"] == a["captures"] if a["loop"] == "captured" else a["replays"] == a["captures"] == 0)
+          and a["steps"] - 1 <= loop_passes <= a["steps"] - 1 + lag
+          and a["done_reads"] == max(loop_passes - lag, 0))  # fmt: skip
+    if not ok:
+        raise AssertionError(f"the runner's launches, passes or reads do not match its steps: {a}")
+
+
 def run_runner(binary, pdir, audio_path, *flags, timeout=600):
     """One single-shot run of wtt_transcribe: its transcript, its attempt
-    lines (one per decode of a window, the accepted one marked), the file's
-    summary line, and its wall seconds (process start, graph loads and
-    weight uploads included)."""
+    lines (one per decode of a window, the accepted one marked, each held
+    by check_attempt), the file's summary line, and its wall seconds
+    (process start, graph loads and weight uploads included)."""
     t0 = time.perf_counter()
     res = subprocess.run(
         [binary, pdir, audio_path, *flags], capture_output=True, text=True, errors="replace",
@@ -4074,9 +4108,9 @@ def run_runner(binary, pdir, audio_path, *flags, timeout=600):
     lines = runner_lines(res.stderr)
     (summary,) = [line for line in lines if "file" in line]
     attempts = [line for line in lines if "window" in line]
-    for a in attempts:  # an update kernel once a step at T = 0, none when sampling
-        if a["greedy_launches"] + a["beam_launches"] != (a["steps"] if a["temperature"] == 0 else 0):
-            raise AssertionError(f"the runner's update launches do not match its steps: {a}")
+    lag = done_lag(pdir)
+    for a in attempts:
+        check_attempt(a, lag)
     other = [line for line in res.stderr.splitlines() if not line.startswith("[wtt]")]
     return dict(text=res.stdout, attempts=attempts, summary=summary, seconds=time.perf_counter() - t0,
                 loads=[line for line in res.stderr.splitlines() if "loaded in" in line],
@@ -4112,10 +4146,10 @@ def ranked_tokens(out, P, eot, G):
     return max(cands, key=lambda c: c[1] / max(len(c[0]), 1))[0]
 
 
-def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights=""):
+def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights="", engine=None):
     """FusedEngine.run on a (n_mels, 3000) window as the runner decodes it
-    (the pipeline's masks, manifest and seed): (the tokens the runner
-    would pick, ms per token of the run)."""
+    (the pipeline's masks, manifest and seed), on `engine` or a new one:
+    (the tokens the runner would pick, the run's EngineRun)."""
     from whisper_tpu_torch.tokenizer import get_tokenizer
 
     m = pipeline_manifest(pdir)
@@ -4127,7 +4161,7 @@ def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights=""):
     G = int(m["beam_size"]) if beam else 1
     xa = model.encode(np.asarray(mel)[None])
     ck, cv = model.cross_kv(xa)
-    engine = FusedEngine(model, weights=weights)
+    engine = engine or FusedEngine(model, weights=weights)
     out = engine.run(
         initial, ck, cv, sot_index=0, suppress_ids=np.nonzero(smask)[0].tolist(),
         blank_ids=np.nonzero(bmask)[0].tolist(), max_initial_ts_index=int(m["max_initial_ts_index"]),
@@ -4136,8 +4170,15 @@ def engine_window(model, pdir, mel, beam, temperature=0.0, seed=0, weights=""):
         eot=tok.eot, timestamp_begin=tok.timestamp_begin, no_timestamps=tok.no_timestamps,
         no_speech=tok.no_speech, rng_seed=seed,
     )  # fmt: skip
-    run = engine.history[-1]
-    return ranked_tokens(out, len(initial), tok.eot, G if beam else 0), run.seconds * 1e3 / run.steps
+    return ranked_tokens(out, len(initial), tok.eot, G if beam else 0), engine.history[-1]
+
+
+def run_record(run):
+    """An EngineRun's ms per token (the run's host wall over its steps,
+    prefill and captures included) and its loop counts."""
+    return dict(ms_per_token=run.seconds * 1e3 / run.steps, steps=run.steps, replays=run.replays,
+                bodies=run.bodies, captures=run.captures, capture_s=run.capture_s,
+                done_reads=run.done_reads)  # fmt: skip
 
 
 def parting_gap(model, pdir, mel, eager, runner):
@@ -4209,8 +4250,8 @@ def turbo_graph_checks(model, pdir, mel):
     package cache the export filled) against the same function run eagerly
     on the same inputs: max |diff| / max |ref| per output; the prefill's
     argmax (step 0's) equal; whether the step wrote the cache in place; the
-    step packages' device ms and kernels per call; and the encoder loaded a
-    second time from the package cache."""
+    step packages' device ms and kernels per call at each cache window;
+    and the encoder loaded a second time from the package cache."""
     from whisper_tpu_torch.export import param_leaves, pipeline_graphs
     from whisper_tpu_torch.runtime.aoti import AotiRunner
 
@@ -4250,7 +4291,8 @@ def turbo_graph_checks(model, pdir, mel):
     if out["step0_argmax"][0] != out["step0_argmax"][1]:
         raise AssertionError(f"the prefill package's step-0 argmax differs: {out['step0_argmax']}")
     pos = torch.tensor(P, dtype=torch.int32, device=DEV)
-    for name, G in (("step_greedy", 1), ("step_beam", len(STEP_BEAM_SRC))):
+    for name in (n for n in fns if n.startswith("step_")):  # every cache window's package
+        G = len(STEP_BEAM_SRC) if name.startswith("step_beam") else 1
         cache = model.kv_to_cache_grouped(kv_ref, G).contiguous()
         last = logits_ref.argmax(-1).to(torch.int32).repeat(G)
         src = [torch.tensor(STEP_BEAM_SRC, dtype=torch.int32, device=DEV)] if G > 1 else []
@@ -4267,16 +4309,24 @@ def turbo_graph_checks(model, pdir, mel):
     return out
 
 
+RUNNER_LAUNCHES = {  # kernel name: the runner's file-line key
+    "greedy_argmax": "greedy_launches", "beam_update": "beam_launches",
+    "greedy_argmax_state": "greedy_state_launches", "beam_update_state": "beam_state_launches",
+}  # fmt: skip
+
+
 class RunnerCalls:
-    """Runs of the native runner, summing the update launches it reports."""
+    """Runs of the native runner, summing the update launches it reports
+    (the scalar ones counted at the call, the loop-state ones by the
+    kernels on the card)."""
 
     def __init__(self, binary):
         self.binary = binary
-        self.launches = {"greedy_argmax": 0, "beam_update": 0}
+        self.launches = dict.fromkeys(RUNNER_LAUNCHES, 0)
 
     def count(self, summary):
-        self.launches["greedy_argmax"] += summary["greedy_launches"]
-        self.launches["beam_update"] += summary["beam_launches"]
+        for name, key in RUNNER_LAUNCHES.items():
+            self.launches[name] += summary[key]
 
     def __call__(self, pdir, audio_path, *flags):
         r = run_runner(self.binary, pdir, audio_path, *flags)
@@ -4292,8 +4342,8 @@ def tiny_export_model():
 
 def export_tiny_pipelines(dirs, cache):
     """Run in a spawned process: export the tiny float32 and int8 pipelines
-    and compile the packages the tiny checks load (the int8 pipeline runs
-    greedy only: no beam step). Returns (export s, compile wall s, [(export
+    and compile the packages the tiny checks and the tool's export load.
+    Returns (export s, compile wall s, [(export
     path, compile s, cached)])."""
     from whisper_tpu_torch.export import export_pipeline
     from whisper_tpu_torch.runtime.aoti import compile_graphs
@@ -4304,24 +4354,29 @@ def export_tiny_pipelines(dirs, cache):
     export_pipeline(dirs["tiny_f32"], tiny, compile=False)
     export_pipeline(dirs["tiny_int8"], tiny, weights="int8", compile=False)
     export_s = time.perf_counter() - t
+    # the int8 runner decodes greedy only: no beam step; the float32
+    # packages are all compiled, the tool's export finds them cached
     jobs = [os.path.join(dirs[d], f"{g}.export.pt2") for d in ("tiny_f32", "tiny_int8")
             for g in json.load(open(os.path.join(dirs[d], "timings.json")))
-            if (d, g) != ("tiny_int8", "step_beam")]  # fmt: skip
+            if not (d == "tiny_int8" and g.startswith("step_beam"))]  # fmt: skip
     t = time.perf_counter()
     results = compile_graphs(jobs, cache, workers=3)
     return export_s, time.perf_counter() - t, [(j, *r) for j, r in zip(jobs, results)]
 
 
-def export_and_check_tiny(model, t_phase):
+def export_and_check_tiny(model, t_phase, stack):
     """Build the runner, export and AOT-compile the three pipelines, and
     run the tiny checks, overlapping all of it with the turbo pipeline's
     compile, which is the longest (its encoder): the runner's g++ build on a
     thread; the tiny pipelines' exports and compiles in a spawned process;
-    the export tool in a subprocess and the tiny checks, then the tool's, on
-    a thread as soon as the runner and the tiny packages are there (the tool
-    reads their compile cache); the turbo pipeline through
-    export_pipeline here (it compiles by default on a card). Returns
-    (RunnerCalls, {pipeline: directory})."""
+    the export tool started in a subprocess and the tiny checks run on a
+    thread as soon as the runner and the tiny packages are there (the tool
+    reads their compile cache; it goes on beside the turbo checks, and
+    export_tool_check reads it after them); the turbo pipeline through
+    export_pipeline here (it compiles by default on a card). The tool's
+    process is stopped when `stack` (an ExitStack) closes. Returns
+    (RunnerCalls, {pipeline: directory}, the tool's process
+    (export_tool_start), the tiny float32 greedy tokens)."""
     from whisper_tpu_torch.export import export_pipeline
     from whisper_tpu_torch.runtime import build as runner_build
 
@@ -4337,9 +4392,9 @@ def export_and_check_tiny(model, t_phase):
     def check_tiny(exported, built):
         exported.result()
         tool = export_tool_start()
+        stack.callback(stop_process, tool[0])
         runner, _ = built.result()
-        tiny_runner_checks(runner, tiny_export_model(), dirs, t_phase)
-        export_tool_check(runner, dirs, t_phase, tool)
+        return tool, tiny_runner_checks(runner, tiny_export_model(), dirs, t_phase)
 
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ThreadPoolExecutor(2) as threads, \
@@ -4351,7 +4406,7 @@ def export_and_check_tiny(model, t_phase):
         export_pipeline(dirs["turbo"], model, cache_dir=cache)
         turbo_s = time.perf_counter() - t
         (runner, build_s), (tiny_export_s, tiny_compile_s, results) = built.result(), exported.result()
-        checked.result()
+        tool, f32_greedy = checked.result()
     timings = {d: json.load(open(os.path.join(dirs[d], "timings.json"))) for d in dirs}
     for job, seconds, cached in results:
         d, name = os.path.basename(os.path.dirname(job)), os.path.basename(job).removesuffix(".export.pt2")
@@ -4360,14 +4415,16 @@ def export_and_check_tiny(model, t_phase):
                     "tiny_export_s": tiny_export_s, "tiny_compile_wall_s": tiny_compile_s,
                     "turbo_export_and_compile_s": turbo_s, "graphs": timings,
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
-    return runner, dirs
+    return runner, dirs, tool, f32_greedy
 
 
 def tiny_runner_checks(runner, tiny, dirs, t_phase):
-    """Tiny float32 and int8 on jfk: the runner's tokens equal the engine's
-    on the same mel bytes (greedy, beam 5, int8 greedy, and the ladder's
-    accepted draw at its temperature and seed); a pipeline without one of
-    its packages makes the runner exit non-zero."""
+    """Tiny float32 and int8 on jfk: the captured runner's tokens equal the
+    engine's on the same mel bytes (greedy, beam 5, int8 greedy, and the
+    ladder's accepted draw at its temperature and seed), the T = 0 decodes
+    running through all three phases (a capture each: past slots 128 and
+    256); a pipeline without one of its packages makes the runner exit
+    non-zero. Returns the float32 greedy tokens."""
     from whisper_tpu_torch.runtime.native import decode_audio, log_mel_native
 
     jfk_mel = log_mel_native(decode_audio(JFK_PATH, 16000), 80, padding=480000)[:, :3000]
@@ -4391,25 +4448,30 @@ def tiny_runner_checks(runner, tiny, dirs, t_phase):
         want, _ = engine_window(tiny, pdir, jfk_mel, beam, a["temperature"], a["seed"], weights)
         if a["token_ids"] != want:
             raise AssertionError(f"tiny {label}: runner {a['token_ids'][:20]}... != engine {want[:20]}...")
+        if a["temperature"] == 0 and a["captures"] != 3:
+            raise AssertionError(f"tiny {label}: {a['steps']} steps, {a['captures']} captures; want every phase")
         out[label] = dict(tokens=len(want), steps=a["steps"], temperature=a["temperature"],
-                          seed=a["seed"], ms_per_token=a["ms_per_token"])  # fmt: skip
+                          seed=a["seed"], ms_per_token=a["ms_per_token"], loop=a["loop"],
+                          replays=a["replays"], captures=a["captures"])  # fmt: skip
     out["ladder_other_stderr"] = ladder_run["other_stderr"]
 
     broken = os.path.join(EXPORT_DIR, "tiny_missing")
     shutil.copytree(dirs["tiny_f32"], broken)
-    os.remove(os.path.join(broken, "step_greedy.aoti.pt2"))
+    os.remove(os.path.join(broken, "step_greedy_w128.aoti.pt2"))
     res = subprocess.run([runner.binary, broken, JFK_PATH], capture_output=True, text=True, timeout=300)
     if res.returncode == 0 or "missing" not in res.stderr:
         raise AssertionError(f"a missing package: exit {res.returncode}, {res.stderr[-500:]}")
     out["missing_package"] = res.stderr.strip().splitlines()[-1][:200]
     log(json.dumps({"phase": "export_runtime", "part": "tiny", **out,
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+    return checks[0][1]["token_ids"]
 
 
 def serve_check(runner, pdir, audio_path, want):
-    """--serve: one request, whose reply's tokens must be `want`, then
-    shutdown; the server's wall seconds to come up and to answer. Its
-    stderr goes to a file, which nothing has to drain."""
+    """--serve: two requests, whose replies' tokens must be `want` and the
+    second of which captures nothing (the graphs stay for the process),
+    then shutdown; the server's wall seconds to come up and to answer each.
+    Its stderr goes to a file, which nothing has to drain."""
     sock = os.path.join(EXPORT_DIR, "wtt.sock")
     err_path = os.path.join(EXPORT_DIR, "serve.stderr")
     t0 = time.perf_counter()
@@ -4422,31 +4484,57 @@ def serve_check(runner, pdir, audio_path, want):
                 raise AssertionError(f"the serving runner did not come up: {open(err_path).read()[-2000:]}")
             time.sleep(0.1)
         up_s = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        reply = runner_request(sock, f"{audio_path}\n")
-        answer_s = time.perf_counter() - t1
+        replies, answer_s = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            replies.append(runner_request(sock, f"{audio_path}\n"))
+            answer_s.append(time.perf_counter() - t1)
         bye = runner_request(sock, "shutdown\n")
         rc = serving.wait(timeout=120)
     finally:
         if serving.poll() is None:
             serving.kill()
             serving.wait()
-    if reply.get("tokens") != want:
-        raise AssertionError(f"serve reply {str(reply)[:300]} != the single-shot run's tokens")
+    for reply in replies:
+        if reply.get("tokens") != want:
+            raise AssertionError(f"serve reply {str(reply)[:300]} != the single-shot run's tokens")
     if bye != {"ok": True} or rc != 0:
         raise AssertionError(f"serve shutdown: {bye}, exit {rc}")
-    for line in runner_lines(open(err_path).read()):
-        if "file" in line:
-            runner.count(line)
-    return dict(up_s=up_s, answer_s=answer_s, reply_tokens=len(want))
+    lines, lag = runner_lines(open(err_path).read()), done_lag(pdir)
+    for a in lines:
+        if "window" in a:
+            check_attempt(a, lag)
+    files = [line for line in lines if "file" in line]
+    for line in files:
+        runner.count(line)
+    captures = [f["captures"] for f in files]
+    if len(files) != 2 or captures[0] == 0 or captures[1] != 0:
+        raise AssertionError(f"--serve's captures a request: {captures}, want some then none")
+    return dict(up_s=up_s, answer_s=answer_s, reply_tokens=len(want), captures=captures,
+                capture_s=[f["capture_s"] for f in files], replays=[f["replays"] for f in files])  # fmt: skip
+
+
+RUNNER_KEYS = ("steps", "ms_per_token", "read_ms_per_token", "replays", "bodies", "captures",
+               "capture_s", "done_reads", "greedy_launches", "beam_launches",
+               "greedy_state_launches", "beam_state_launches")  # fmt: skip
+
+
+def runner_attempt(a):
+    """A runner attempt's counts and times, and its ms per token with its
+    captures' seconds left out (the loop's steady cost)."""
+    loop_ms = (a["decode_ms"] - a["capture_s"] * 1e3) / max(a["steps"], 1)
+    return dict({k: a[k] for k in RUNNER_KEYS}, loop_ms_per_token=loop_ms)
 
 
 def turbo_runner_checks(runner, model, jfk, pdir, card, t_phase):
     """Turbo bf16: each graph's package against its eager run; the 60 s
-    clip greedy and beam 5 at T = 0, its first window against the eager
-    engine (the common prefix; where they part, the eager top-two gap
-    there) with both ms per token; jfk through the ladder, single-shot and
-    through --serve, whose reply must equal the single-shot run's tokens."""
+    clip greedy and beam 5 at T = 0 through the captured runner, and its
+    first window through --no-capture, whose tokens must equal the
+    captured run's; the first window against the captured engine (the common prefix;
+    where they part, the eager top-two gap there), the engine's first run
+    (which captures) and second beside the runner's; jfk through the
+    ladder, single-shot and through --serve, whose replies must equal the
+    single-shot run's tokens."""
     from whisper_tpu_torch.runtime.native import decode_audio, log_mel_native
 
     clip = write_wav(os.path.join(EXPORT_DIR, "clip60.wav"), np.tile(jfk, 6)[: 60 * 16000])
@@ -4454,40 +4542,55 @@ def turbo_runner_checks(runner, model, jfk, pdir, card, t_phase):
     log(json.dumps({"phase": "export_runtime", "part": "turbo_graphs",
                     **turbo_graph_checks(model, pdir, mel), "card": card}))  # fmt: skip
     out = {}
+    engine = FusedEngine(model)
     for label, beam in (("greedy", False), ("beam5", True)):
-        run = runner(pdir, clip, "--tokens", "--no-fallback", *(["--beam"] if beam else []))
+        flags = ("--tokens", "--no-fallback", *(["--beam"] if beam else []))
+        run = runner(pdir, clip, *flags)
+        uncaptured = runner(pdir, clip, *flags, "--max-windows", "1", "--no-capture")["attempts"]
         first = run["attempts"][0]
-        eager, eager_ms = engine_window(model, pdir, mel, beam)
-        keys = ("ms_per_token", "graph_ms_per_token", "update_ms_per_token", "read_ms_per_token", "steps")
+        for captured, body in zip(run["attempts"], uncaptured):
+            if body["token_ids"] != captured["token_ids"]:
+                raise AssertionError(f"turbo {label} window {body['window']}: --no-capture "
+                                     f"{body['token_ids'][:20]}... != captured {captured['token_ids'][:20]}...")  # fmt: skip
+        eager, engine_first = engine_window(model, pdir, mel, beam, engine=engine)
+        _, engine_second = engine_window(model, pdir, mel, beam, engine=engine)
         out[label + "_window1"] = dict(
             tokens=len(first["token_ids"]), eager_tokens=len(eager),
             common_prefix=common_prefix(first["token_ids"], eager),
             parting=parting_gap(model, pdir, mel, eager, first["token_ids"]),
-            eager_ms_per_token=eager_ms, **{k: first[k] for k in keys},
+            captured=[runner_attempt(a) for a in run["attempts"][:2]],
+            no_capture=[runner_attempt(a) for a in uncaptured],
+            engine=[run_record(engine_first), run_record(engine_second)],
         )  # fmt: skip
         out[label + "_clip60"] = dict(
             windows=run["summary"]["windows"], seconds=run["summary"]["seconds"],
             process_s=run["seconds"], rtfx=60.0 / run["summary"]["seconds"],
-            attempts=[[a["window"], a["steps"], a["ms_per_token"]] for a in run["attempts"]],
-            greedy_launches=run["summary"]["greedy_launches"],
-            beam_launches=run["summary"]["beam_launches"], loads=run["loads"],
-            other_stderr=run["other_stderr"],
+            attempts=[[a["window"], a["steps"], a["ms_per_token"], a["captures"], a["capture_s"]]
+                      for a in run["attempts"]],
+            **{k: run["summary"][k] for k in RUNNER_KEYS[3:] if k in run["summary"]},
+            loads=run["loads"], other_stderr=run["other_stderr"],
         )  # fmt: skip
     # the ladder at turbo width on jfk (random weights fail every gate, so
     # six attempts), single-shot and through --serve
     ladder = runner(pdir, JFK_PATH, "--tokens")
-    out["jfk_ladder"] = dict(attempts=[[a["temperature"], a["seed"], a["steps"], a["ms_per_token"]]
+    out["jfk_ladder"] = dict(attempts=[[a["temperature"], a["seed"], a["steps"], a["ms_per_token"], a["captures"]]
                                        for a in ladder["attempts"]], process_s=ladder["seconds"])  # fmt: skip
     out["serve"] = serve_check(runner, pdir, JFK_PATH, accepted_tokens(ladder))
     log(json.dumps({"phase": "export_runtime", "part": "turbo_runner", **out, "card": card,
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
 
 
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def export_tool_start():
     """Start `python -m whisper_tpu_torch.export_pipeline` on the tiny
     float32 model saved by save_model, into the phase's compile cache,
-    --no-build, at nice 10 beside the turbo compile (as the tiny compiles
-    run). Its graphs were just compiled there, so each should load from the
+    --no-build, at nice 10 beside the turbo compile and checks (as the tiny
+    compiles run). Its graphs were just compiled there, so each should load from the
     cache: a cold compile means the cache key moved (reported). Returns
     (process, start time, log path)."""
     npz = os.path.join(EXPORT_DIR, "tiny_f32.npz")
@@ -4504,26 +4607,23 @@ def export_tool_start():
     return proc, time.perf_counter(), log_path
 
 
-def export_tool_check(runner, dirs, t_phase, started):
+def export_tool_check(runner, t_phase, started, want):
     """The tool's pipeline (export_tool_start) gives the runner built above
-    the same tokens as the phase's tiny float32 pipeline (greedy, one window
-    of jfk); its timings.json with each graph's cached flag is logged."""
+    the same tokens, `want`, as the phase's tiny float32 pipeline (greedy,
+    one window of jfk, tiny_runner_checks); its timings.json with each
+    graph's cached flag is logged."""
     proc, t0, log_path = started
     try:
         rc = proc.wait(timeout=900)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_process(proc)
     tool_s = time.perf_counter() - t0
     with open(log_path) as f:
         tool_log = f.read()
     if rc != 0:
         raise AssertionError(f"the export tool failed ({rc}):\n{tool_log[-4000:]}")
     tool_dir = os.path.join(EXPORT_DIR, "tool")
-    one = ("--tokens", "--max-windows", "1", "--no-fallback")
-    want = runner(dirs["tiny_f32"], JFK_PATH, *one)["attempts"][0]["token_ids"]
-    got = runner(tool_dir, JFK_PATH, *one)["attempts"][0]["token_ids"]
+    got = runner(tool_dir, JFK_PATH, "--tokens", "--max-windows", "1", "--no-fallback")["attempts"][0]["token_ids"]
     if got != want:
         raise AssertionError(f"the tool's pipeline: {got[:20]}... != the phase's tiny f32 {want[:20]}...")
     with open(os.path.join(tool_dir, "timings.json")) as f:
@@ -4539,8 +4639,10 @@ def export_runtime_phase(model, jfk, card):
     int8, turbo bf16) and the one-command export tool. Returns the runner's
     update launches."""
     t_phase = time.perf_counter()
-    runner, dirs = export_and_check_tiny(model, t_phase)
-    turbo_runner_checks(runner, model, jfk, dirs["turbo"], card, t_phase)
+    with contextlib.ExitStack() as stack:
+        runner, dirs, tool, f32_greedy = export_and_check_tiny(model, t_phase, stack)
+        turbo_runner_checks(runner, model, jfk, dirs["turbo"], card, t_phase)
+        export_tool_check(runner, t_phase, tool, f32_greedy)
     if not all(runner.launches.values()):
         raise AssertionError(f"the runner launched an update kernel no time: {runner.launches}")
     log(json.dumps({"phase": "export_runtime", "seconds": time.perf_counter() - t_phase,

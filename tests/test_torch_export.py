@@ -26,8 +26,8 @@ import whisper_tpu_torch
 from whisper_tpu.engine_fused import FusedConfig, _apply_filters
 from whisper_tpu.engine_fused import FusedEngine as JaxEngine
 from whisper_tpu.models import graphs as jg
-from whisper_tpu_torch.engine import FusedEngine
-from whisper_tpu_torch.export import export_graph, export_model_graphs, export_pipeline
+from whisper_tpu_torch.engine import PHASES, FusedEngine
+from whisper_tpu_torch.export import export_graph, export_model_graphs, export_pipeline, step_graph_name
 from whisper_tpu_torch.models import graphs
 from whisper_tpu_torch.ops.beam_kernel import beam_update_plain, greedy_argmax_plain
 
@@ -36,7 +36,10 @@ from whisper_tpu_torch.ops.beam_kernel import beam_update_plain, greedy_argmax_p
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-GRAPHS = ("encoder", "cross_kv", "prefill", "step_greedy", "step_beam", "filters")
+GRAPHS = (
+    "encoder", "cross_kv", "prefill", "step_greedy", "step_beam", "filters",
+    *(step_graph_name(beam, w) for beam in (False, True) for w in PHASES[:-1]),
+)  # fmt: skip
 MODES = ("bf16", "int8")
 
 
@@ -167,7 +170,7 @@ def test_pipeline_files(pipelines, weights):
     names = [f"{g}.{ext}" for g in GRAPHS for ext in ("export.pt2", "spec.json", "spec.txt")]
     names += [
         "encoder.params.bin", "decoder.params.bin", "suppress_mask.bin", "blank_mask.bin",
-        "suppress_pen.bin", "begin_pen.bin", "pipeline.txt", "multilingual.tiktoken", "timings.json",
+        "suppress_pen.bin", "begin_pen.bin", "pipeline.txt", "loop.txt", "multilingual.tiktoken", "timings.json",
     ]  # fmt: skip
     names += ["decoder_int8.params.bin"] if weights == "int8" else []
     for f in names:
@@ -415,9 +418,11 @@ def test_exported_filters_match_jax(pipelines, exported, n_tokens):
 
 
 def _exported_decode(run, pdir, ck, cv, beam, sample_len, temperature=0.0, seed=0):
-    """The native runner's per-window loop (csrc/wtt_transcribe.cpp
-    decode_window) in Python over the exported programs, with the update
-    kernels' plain versions. Returns FusedEngine.run's output tuple."""
+    """A host loop over the exported programs (the whole-cache steps, host
+    ints for the lengths), with the update kernels' plain versions: the
+    packages compose into the engines' decode. (The runner's own loop, the
+    captured body at the cache phases, is tests/test_torch_runner_loop.py's
+    twin.) Returns FusedEngine.run's output tuple."""
     m = _manifest(pdir)
     P, eot, ts, V = int(m["sample_begin"]), int(m["eot"]), int(m["timestamp_begin"]), int(m["n_vocab"])
     G = int(m["beam_size"]) if beam else 1

@@ -129,7 +129,9 @@ def cuda_device():
 @pytest.mark.cuda
 def test_runner_matches_engine_on_card(cuda_device, tmp_path, jfk_flac_path):
     """Tiny float32 model (TF32 off): the runner's greedy tokens on one
-    window at T = 0 equal the port's engine on the same mel bytes."""
+    window at T = 0, captured and with --no-capture, equal the port's
+    engine on the same mel bytes; one scalar launch (step 0), one
+    loop-state launch a replay or uncaptured pass."""
     import whisper_tpu_torch
     from whisper_tpu_torch.engine import FusedEngine
     from whisper_tpu_torch.export import export_pipeline
@@ -142,12 +144,15 @@ def test_runner_matches_engine_on_card(cuda_device, tmp_path, jfk_flac_path):
     pdir = str(tmp_path / "pipeline")
     export_pipeline(pdir, model, cache_dir=str(tmp_path / "cache"))
     runner = build.build_runner()
-    res = subprocess.run(
-        [runner, pdir, jfk_flac_path, "--tokens", "--max-windows", "1", "--no-fallback"],
-        capture_output=True, text=True, errors="replace", timeout=900,
-    )  # fmt: skip
-    assert res.returncode == 0, res.stderr[-4000:]
-    window = [json.loads(l[6:]) for l in res.stderr.splitlines() if l.startswith("[wtt] {\"window\"")][0]
+    windows = []
+    for flags in ([], ["--no-capture"]):
+        res = subprocess.run(
+            [runner, pdir, jfk_flac_path, "--tokens", "--max-windows", "1", "--no-fallback", *flags],
+            capture_output=True, text=True, errors="replace", timeout=900,
+        )  # fmt: skip
+        assert res.returncode == 0, res.stderr[-4000:]
+        windows += [json.loads(l[6:]) for l in res.stderr.splitlines() if l.startswith("[wtt] {\"window\"")][:1]
+    window, uncaptured = windows
     manifest = dict(l.rstrip("\n").split(" ", 1) for l in open(os.path.join(pdir, "pipeline.txt")))
     initial = [int(t) for t in manifest["initial_tokens"].split()]
     audio = native.decode_audio(jfk_flac_path, 16000)
@@ -164,5 +169,8 @@ def test_runner_matches_engine_on_card(cuda_device, tmp_path, jfk_flac_path):
         no_timestamps=ts - 1, no_speech=ts - 2,
     )  # fmt: skip
     engine = [int(t) for t in out[0][0, len(initial) : int(out[1])] if t != eot]
-    assert window["token_ids"] == engine
-    assert window["greedy_launches"] == window["steps"]
+    assert window["token_ids"] == uncaptured["token_ids"] == engine
+    assert window["loop"] == "captured" and window["captures"] > 0 and uncaptured["replays"] == 0
+    for w in (window, uncaptured):
+        assert w["greedy_launches"] == 1
+        assert w["greedy_state_launches"] == w["replays"] + w["bodies"]

@@ -4,33 +4,46 @@
 //
 // It reads a directory written by whisper_tpu_torch.export.export_pipeline:
 //
-//   encoder / cross_kv / prefill / step_greedy / step_beam / filters
+//   encoder / cross_kv / prefill / filters, step_greedy / step_beam and
+//   their windows step_greedy_w128 / _w256, step_beam_w128 / _w256
 //       .aoti.pt2 (AOTInductor packages) + .spec.txt (I/O manifest)
 //   encoder.params.bin, decoder.params.bin (decoder_int8.params.bin)
-//   suppress_pen.bin / begin_pen.bin, <vocab>.tiktoken, pipeline.txt
+//   suppress_pen.bin / begin_pen.bin, <vocab>.tiktoken, pipeline.txt,
+//   loop.txt (the loop's phases, their step packages, the done lag)
 //
 // and runs audio decode -> log-mel (runtime/audioio.cpp) -> encoder ->
-// cross-K/V -> prefill -> per token: the fixed-shape step graph, then the
-// hand-written update kernel (wtt_greedy_argmax at T = 0, wtt_beam_update
-// with --beam) through its C ABI on PyTorch's current stream, or at T > 0 the
-// filters graph and the engine's draw in ATen -> ranking -> detokenization,
-// with the temperature ladder and the quality gates of the JAX binary.
-// Weights are uploaded to the card once, checked against the spec, and one
-// copy of the decoder serves every decoder graph; xa, the cross-K/V and the
-// KV cache are CUDA tensors the runner owns. The step graph writes the cache
-// in place. The done flag is read once a step, as the port's engine reads it.
+// cross-K/V -> prefill and step 0 (the update kernels' scalar launches) ->
+// the decode loop -> ranking -> detokenization, with the temperature ladder
+// and the quality gates of the JAX binary. The loop is engine.FusedEngine's
+// program (the counterpart of the JAX export's fused_greedy / fused_beam):
+// one loop body on static buffers (the step package at the cache phase's
+// window 128, 256 or 448, the update kernels' loop-state launches
+// wtt_greedy_argmax_state / wtt_beam_update_state through their C ABI, or at
+// T > 0 the filters package and the engine's draw; the live-masked token,
+// source and score writes; the loop state's advance; a pinned copy of the
+// live flag), captured as a CUDA graph once per (mode, window) at first use
+// (csrc/wtt_graph.cpp) and replayed once per token. The host knows how many
+// tokens it has decoded, so it stops at sample_len, at 448 and at each
+// phase's edge without reading the card; the one read between tokens is the
+// live flag as the pass done_lag back left it, after that pass's CUDA event.
+// --no-capture runs the same body uncaptured. Everything runs on a side
+// stream (no graph is captured on the legacy default stream). Weights are
+// uploaded to the card once, checked against the spec, and one copy of the
+// decoder serves every decoder graph.
 //
 // Usage:
 //   wtt_transcribe <pipeline_dir> <audio> [--max-windows N] [--tokens]
-//       [--beam] [--no-fallback]
-//   wtt_transcribe <pipeline_dir> --serve SOCK
+//       [--beam] [--no-fallback] [--no-capture]
+//   wtt_transcribe <pipeline_dir> --serve SOCK [--no-capture]
 //
 // The transcript goes to stdout; per-window lines ("[wtt] {json}") go to
-// stderr, with the update launches the runner made and its ms per token.
-// Build: whisper_tpu_torch.runtime.build.build_runner().
+// stderr, with the update launches, replays, captures, done reads and ms
+// per token. Build: whisper_tpu_torch.runtime.build.build_runner().
 
 #include <ATen/ATen.h>
+#include <c10/core/Event.h>
 #include <c10/core/InferenceMode.h>
+#include <c10/core/impl/VirtualGuardImpl.h>
 #include <sys/socket.h>
 #include <sys/un.h>
 #include <torch/csrc/inductor/aoti_package/model_package_loader.h>
@@ -70,14 +83,34 @@ int wtt_beam_update(const float* logits, const int* tokens, const float* sum_lp,
                     const float* begin, int* out_tokens, int* out_src, float* out_sum_lp, int A,
                     int G, int V, int T, int MC, int n_tokens, int sample_begin, int step,
                     int use_ts, int eot, int ts_begin, void* stream);
-// libtorch_cuda: PyTorch's current stream of a device (AOTInductor's C shim)
-int32_t aoti_torch_get_current_cuda_stream(int32_t device_index, void** ret_stream);
+int wtt_greedy_argmax_state(const float* logits, const int* tokens, const int* state,
+                            const float* suppress, const float* begin, int* out_tok,
+                            float* out_lp, unsigned long long* launches, int B, int V, int T,
+                            int use_ts, int eot, int ts_begin, void* stream);
+int wtt_beam_update_state(const float* logits, const int* tokens, const float* sum_lp,
+                          int* pool_tokens, float* pool_scores, int* pool_lengths, int* pool_count,
+                          const float* suppress, const float* begin, const int* state,
+                          unsigned long long* launches, int* out_tokens, int* out_src,
+                          float* out_sum_lp, int A, int G, int V, int T, int MC, int use_ts,
+                          int eot, int ts_begin, void* stream);
+// whisper_tpu_torch/csrc/wtt_graph.cpp: CUDA graphs and the side stream
+const char* wtt_graph_last_error();
+int wtt_graph_side_stream(int device, void** stream);
+int wtt_graph_new(void** graph);
+int wtt_graph_register_generator(void* graph);
+int wtt_graph_capture_begin(void* graph);
+int wtt_graph_capture_end(void* graph);
+int wtt_graph_replay(void* graph);
+void wtt_graph_destroy(void* graph);
 }
 
 namespace {
 
 constexpr int kCacheSlots = 448;  // n_text_ctx
 constexpr int kWindowFrames = 3000;
+// the loop state's fields (csrc/update_common.cuh LoopState)
+enum { kNTokens = 0, kSampleBegin = 1, kStep = 2, kLive = 3 };
+enum Mode { kGreedy = 0, kSample = 1, kBeam = 2 };
 
 double now_s() {
   return std::chrono::duration<double>(std::chrono::steady_clock::now().time_since_epoch()).count();
@@ -172,6 +205,42 @@ Pipeline parse_pipeline(const std::string& path) {
   }
   if ((int)p.initial_tokens.size() != p.sample_begin) die("pipeline.txt: initial_tokens != sample_begin");
   return p;
+}
+
+// ---- loop.txt (export.loop_manifest): the done flag's lag in passes, then
+// the phases a decode of sample_len runs through, in order, each with its
+// cache window and its greedy and beam step packages; the last phase writes
+// up to the whole cache ----
+struct Phase {
+  int window = 0;
+  std::string greedy, beam;
+};
+
+struct Loop {
+  int done_lag = -1;
+  std::vector<Phase> phases;
+};
+
+Loop parse_loop(const std::string& path) {
+  std::ifstream f(path);
+  if (!f) die("cannot read " + path);
+  Loop loop;
+  std::string line;
+  while (std::getline(f, line)) {
+    std::istringstream ss(line);
+    std::string key;
+    ss >> key;
+    if (key == "done_lag") ss >> loop.done_lag;
+    else if (key == "phase") {
+      Phase ph;
+      ss >> ph.window >> ph.greedy >> ph.beam;
+      int before = loop.phases.empty() ? 0 : loop.phases.back().window;
+      if (!ss || ph.window <= before || ph.window > kCacheSlots) die(path + ": bad phase line: " + line);
+      loop.phases.push_back(ph);
+    }
+  }
+  if (loop.done_lag < 0 || loop.phases.empty()) die(path + ": no done_lag or no phase");
+  return loop;
 }
 
 // ---- tiktoken ranks: "<base64 token bytes> <rank>" per line ----
@@ -334,15 +403,70 @@ void check_input(const Graph& g, size_t i, const at::Tensor& t) {
         c10::str(c10::IntArrayRef(s.dims)));
 }
 
+// What a window's decode did: scalar launches (step 0, counted at the
+// call), loop-state launches (counted by the kernels on the card), replays
+// of a captured body, uncaptured passes (--no-capture, capture warm-ups),
+// captures and their host seconds, host reads of the done flag.
+struct Counts {
+  int64_t greedy_launches = 0, beam_launches = 0, greedy_state_launches = 0, beam_state_launches = 0;
+  int64_t replays = 0, bodies = 0, captures = 0, done_reads = 0;
+  double capture_s = 0.0;
+
+  void add(const Counts& o, int sign = 1) {
+    greedy_launches += sign * o.greedy_launches, beam_launches += sign * o.beam_launches;
+    greedy_state_launches += sign * o.greedy_state_launches;
+    beam_state_launches += sign * o.beam_state_launches;
+    replays += sign * o.replays, bodies += sign * o.bodies, captures += sign * o.captures;
+    done_reads += sign * o.done_reads, capture_s += sign * o.capture_s;
+  }
+};
+
+// The static buffers of one step mode (greedy and sampling share G = 1;
+// beam search has G = beam_size rows) that the loop body reads and writes
+// (engine._Program), and the body's graphs by (mode, window). A graph
+// replays at the buffers' addresses, so each window copies its inputs in.
+struct Program {
+  int G = 0, MC = 0;
+  at::Tensor tokens, cache, sum_lp, pool_tokens, pool_scores, pool_lengths, pool_count;
+  at::Tensor state;      // int32 [n_tokens, sample_begin, step, live]
+  at::Tensor live_host;  // pinned: each pass's copy of live
+  at::Tensor pos, last, src, identity, advance, t_scale, ck, cv;
+  // the update's outputs (a replay writes the same addresses)
+  at::Tensor tok_out, lp_out, new_tokens, src_out, new_lp;
+  struct Captured {
+    void* graph = nullptr;
+    std::vector<at::Tensor> outputs;  // the packages' outputs in the graph's pool, kept with it
+  };
+  std::map<std::pair<int, int>, Captured> graphs;  // (mode, window)
+
+  Program() = default;
+  Program(const Program&) = delete;
+  Program& operator=(const Program&) = delete;
+  ~Program() {
+    for (auto& kv : graphs) {
+      kv.second.outputs.clear();
+      wtt_graph_destroy(kv.second.graph);
+    }
+  }
+};
+
 struct Engine {
   std::string dir;
   Pipeline p;
+  Loop loop;
   std::vector<std::string> vocab;
   std::map<std::string, Graph> graphs;
   std::map<std::string, std::vector<at::Tensor>> blobs;  // one upload per blob
-  at::Tensor suppress_pen, begin_pen;
-  void* stream = nullptr;
-  int64_t greedy_launches = 0, beam_launches = 0;
+  at::Tensor suppress_pen, begin_pen, first;
+  void* stream = nullptr;  // the side stream every call and launch runs on
+  std::unique_ptr<c10::Stream> side;
+  std::vector<c10::Event> pass_events;  // one per pass in flight behind the done read
+  bool capture = true;                  // --no-capture: the body runs uncaptured
+  // the loop-state kernels count their launches on the card (greedy, beam),
+  // read after each window
+  at::Tensor state_counters;
+  Counts totals;
+  std::map<bool, std::unique_ptr<Program>> programs;  // by beam
 
   Graph& load(const std::string& name, const std::string& blob) {
     Graph& g = graphs[name];
@@ -352,7 +476,9 @@ struct Engine {
     if (!file_exists(pkg))
       die("missing " + pkg + ": compile the pipeline (export_pipeline(..., compile=True))");
     double t0 = now_s();
-    g.loader = std::make_unique<torch::inductor::AOTIModelPackageLoader>(pkg);
+    // single-threaded: a run takes no model from the container's pool and
+    // waits on no event, so a CUDA graph can capture it
+    g.loader = std::make_unique<torch::inductor::AOTIModelPackageLoader>(pkg, "model", true);
     fprintf(stderr, "[wtt] %s: loaded in %.2f s\n", name.c_str(), now_s() - t0);
     if (g.spec.n_params > 0) {
       auto it = blobs.find(blob);
@@ -379,6 +505,8 @@ struct Engine {
     if (out.size() != g.spec.outputs.size()) die(name + ": output count differs from the spec");
     return out;
   }
+
+  Program& program(bool beam);
 };
 
 at::Tensor read_f32(const std::string& path, int64_t n) {
@@ -389,12 +517,20 @@ at::Tensor read_f32(const std::string& path, int64_t n) {
   return t.to(at::kCUDA);
 }
 
+void check_graph(int rc, const char* what) {
+  if (rc != 0) die(std::string(what) + " failed: " + wtt_graph_last_error());
+}
+
 void engine_init(Engine& e, const std::string& dir, bool load_beam) {
   if (!torch::cuda::is_available()) die("no CUDA device: the runner runs only on a card");
   e.dir = dir;
   e.p = parse_pipeline(dir + "/pipeline.txt");
+  e.loop = parse_loop(dir + "/loop.txt");
   e.vocab = load_tiktoken(dir + "/" + e.p.tiktoken_file, e.p.n_text_tokens);
-  if (aoti_torch_get_current_cuda_stream(0, &e.stream) != 0) die("cannot read the current CUDA stream");
+  check_graph(wtt_graph_side_stream(0, &e.stream), "making the side stream current");
+  c10::Device dev(c10::DeviceType::CUDA, 0);
+  e.side = std::make_unique<c10::Stream>(c10::impl::VirtualGuardImpl(c10::DeviceType::CUDA).getStream(dev));
+  for (int i = 0; i <= e.loop.done_lag; i++) e.pass_events.emplace_back(c10::DeviceType::CUDA);
   e.load("encoder", "encoder.params.bin");
   int n_dec = e.load("cross_kv", "decoder.params.bin").spec.n_params;
   // an int8 export's prefill and steps read the quantized tree from its own blob
@@ -402,11 +538,58 @@ void engine_init(Engine& e, const std::string& dir, bool load_beam) {
                               ? "decoder.params.bin"
                               : "decoder_int8.params.bin";
   e.load("prefill", step_blob);
-  e.load("step_greedy", step_blob);
   e.load("filters", "");
-  if (load_beam) e.load("step_beam", step_blob);
+  // the step packages of the loop's phases
+  for (const Phase& ph : e.loop.phases) {
+    e.load(ph.greedy, step_blob);
+    if (load_beam) e.load(ph.beam, step_blob);
+  }
   e.suppress_pen = read_f32(dir + "/suppress_pen.bin", e.p.n_vocab);
   e.begin_pen = read_f32(dir + "/begin_pen.bin", e.p.n_vocab);
+  std::vector<int32_t> initial(kCacheSlots, 0);
+  std::copy(e.p.initial_tokens.begin(), e.p.initial_tokens.end(), initial.begin());
+  e.first = at::from_blob(initial.data(), {1, kCacheSlots}, at::kInt).to(at::kCUDA);
+  e.state_counters = at::zeros({2}, at::TensorOptions().dtype(at::kLong).device(at::kCUDA));
+}
+
+// The buffers of a mode, made at its first use from the step package's
+// spec (the cache's and cross-K/V's shapes and types).
+Program& Engine::program(bool beam) {
+  std::unique_ptr<Program>& slot = programs[beam];
+  if (slot) return *slot;
+  slot = std::make_unique<Program>();
+  Program& q = *slot;
+  const Phase& ph = loop.phases[0];  // every phase's step takes the same inputs
+  const GraphSpec& spec = graphs.at(beam ? ph.beam : ph.greedy).spec;
+  const std::vector<TensorSpec>& in = spec.inputs;
+  size_t n = (size_t)spec.n_params;
+  auto cuda = [](at::ScalarType t) { return at::TensorOptions().dtype(t).device(at::kCUDA); };
+  auto zeros_of = [&](const TensorSpec& t) { return at::zeros(t.dims, cuda(scalar_type(t))); };
+  q.G = beam ? p.beam_size : 1, q.MC = q.G;
+  const int G = q.G;
+  q.last = zeros_of(in[n]);     // (G,) the tokens the step embeds
+  q.pos = zeros_of(in[n + 1]);  // 0-d: the slot it writes
+  q.cache = zeros_of(in[n + 2]);
+  q.ck = zeros_of(in[in.size() - 2]);
+  q.cv = zeros_of(in[in.size() - 1]);
+  q.tokens = at::zeros({G, kCacheSlots}, cuda(at::kInt));
+  q.sum_lp = at::zeros({G}, cuda(at::kFloat));
+  q.pool_tokens = at::zeros({1, q.MC, kCacheSlots + 1}, cuda(at::kInt));
+  q.pool_scores = at::zeros({1, q.MC}, cuda(at::kFloat));
+  q.pool_lengths = at::zeros({1, q.MC}, cuda(at::kInt));
+  q.pool_count = at::zeros({1}, cuda(at::kInt));
+  q.state = at::zeros({4}, cuda(at::kInt));
+  q.live_host = at::zeros({1}, at::TensorOptions().dtype(at::kInt).pinned_memory(true));
+  q.identity = at::arange(G, cuda(at::kInt));
+  q.src = q.identity.clone();
+  q.advance = at::tensor({1, 0, 1, 0}, at::kInt).to(at::kCUDA);  // + live: n_tokens and step
+  q.t_scale = at::ones({1}, cuda(at::kFloat));
+  q.tok_out = at::zeros({G}, cuda(at::kInt));
+  q.lp_out = at::zeros({G}, cuda(at::kFloat));
+  q.new_tokens = at::zeros_like(q.tokens);
+  q.src_out = at::zeros({G}, cuda(at::kInt));
+  q.new_lp = at::zeros({G}, cuda(at::kFloat));
+  return q;
 }
 
 // ---- one window decode ----
@@ -414,127 +597,264 @@ struct WindowResult {
   std::vector<int32_t> seq;  // sampled tokens, eot excluded
   double sum_lp = 0.0, no_speech = 0.0;
   int steps = 0;
-  int64_t greedy_launches = 0, beam_launches = 0;
-  // host seconds: the whole decode, and per token the step graph's call,
-  // the update (kernel or filters and draw), and the read of the done flag
-  double seconds = 0.0, graph_s = 0.0, update_s = 0.0, read_s = 0.0;
+  Counts n;
+  // host seconds: the whole decode, the waits for the done flag
+  double seconds = 0.0, read_s = 0.0;
 };
 
 void check_rc(int rc, const char* what) {
   if (rc != 0) die(std::string(what) + " kernel launch failed: CUDA error " + std::to_string(rc));
 }
 
+unsigned long long* state_counter(Engine& e, int which) {
+  return reinterpret_cast<unsigned long long*>(e.state_counters.data_ptr<int64_t>() + which);
+}
+
+// This window's inputs into the buffers (engine._Program.start): tokens,
+// the prefill's K/V in every row, zeroed sums and pools, the loop state at
+// step 0, the cross-K/V, 1/T.
+void start(Engine& e, Program& q, const at::Tensor& kv, const at::Tensor& ck,
+           const at::Tensor& cv, float temperature) {
+  const int P = e.p.sample_begin, G = q.G;
+  q.tokens.copy_(e.first.expand({G, kCacheSlots}));
+  q.cache.zero_();
+  q.cache.narrow(3, 0, P).copy_(kv.expand({kv.size(0), 2, G, P, kv.size(4)}));
+  q.sum_lp.zero_();
+  q.pool_tokens.zero_();
+  q.pool_scores.fill_(-INFINITY);
+  q.pool_lengths.zero_();
+  q.pool_count.zero_();
+  q.src.copy_(q.identity);
+  q.state.copy_(at::tensor({P, P, 0, 1}, at::kInt));
+  q.ck.copy_(ck);
+  q.cv.copy_(cv);
+  // the sampled logits are scaled by this device value, so one capture
+  // serves every temperature of the ladder
+  q.t_scale.fill_((double)(1.0f / std::max(temperature, 1e-6f)));
+}
+
+// GreedyDecoder.update's tail where live (engine._greedy_tail): rows that
+// already ended stay at EOT, the log-probability adds up, the token goes to
+// slot n_tokens. Returns the rows' done flags.
+at::Tensor greedy_tail(Program& q, const at::Tensor& tok, const at::Tensor& lp, const at::Tensor& live,
+                       int eot) {
+  at::Tensor nt = q.state.narrow(0, kNTokens, 1).to(at::kLong).expand({q.G}).unsqueeze(1);
+  at::Tensor already = q.tokens.gather(1, nt - 1).select(1, 0).eq(eot);
+  q.sum_lp.copy_(at::where(live, q.sum_lp + at::where(already, 0.0, lp), q.sum_lp));
+  at::Tensor next = at::where(already, eot, tok);
+  next = at::where(live, next, q.tokens.gather(1, nt).select(1, 0));
+  q.tokens.scatter_(1, nt, next.unsqueeze(1));
+  return next.eq(eot);
+}
+
+// The update on `logits`, the writes where live, the loop state's advance
+// and the pinned live flag (engine._update). first_n >= 0: step 0, the
+// kernels' scalar launches at that length; -1: their loop-state launches.
+void update(Engine& e, Program& q, Mode mode, const at::Tensor& logits, int first_n,
+            std::vector<at::Tensor>* outputs, WindowResult* res) {
+  const Pipeline& p = e.p;
+  const int G = q.G, V = (int)p.n_vocab, eot = (int)p.eot, ts = (int)p.timestamp_begin;
+  const int P = p.sample_begin;
+  at::Tensor live = q.state.narrow(0, kLive, 1).ne(0);
+  const float* sup = e.suppress_pen.data_ptr<float>();
+  const float* beg = e.begin_pen.data_ptr<float>();
+  at::Tensor done;
+  if (mode == kBeam) {
+    int* pools[] = {q.pool_tokens.data_ptr<int>(), q.pool_lengths.data_ptr<int>(),
+                    q.pool_count.data_ptr<int>()};
+    if (first_n >= 0) {
+      check_rc(wtt_beam_update(logits.data_ptr<float>(), q.tokens.data_ptr<int>(), q.sum_lp.data_ptr<float>(),
+                               pools[0], q.pool_scores.data_ptr<float>(), pools[1], pools[2], sup, beg,
+                               q.new_tokens.data_ptr<int>(), q.src_out.data_ptr<int>(),
+                               q.new_lp.data_ptr<float>(), 1, G, V, kCacheSlots, q.MC, first_n, P,
+                               0, 1, eot, ts, e.stream),
+               "beam_update");
+      res->n.beam_launches++;
+    } else {
+      check_rc(wtt_beam_update_state(logits.data_ptr<float>(), q.tokens.data_ptr<int>(),
+                                     q.sum_lp.data_ptr<float>(), pools[0], q.pool_scores.data_ptr<float>(),
+                                     pools[1], pools[2], sup, beg, q.state.data_ptr<int>(),
+                                     state_counter(e, 1), q.new_tokens.data_ptr<int>(),
+                                     q.src_out.data_ptr<int>(), q.new_lp.data_ptr<float>(), 1, G, V,
+                                     kCacheSlots, q.MC, 1, eot, ts, e.stream),
+               "beam_update_state");
+    }
+    q.tokens.copy_(at::where(live.unsqueeze(1), q.new_tokens, q.tokens));
+    q.src.copy_(at::where(live, q.src_out, q.identity));
+    q.sum_lp.copy_(at::where(live, q.new_lp, q.sum_lp));
+    done = q.pool_count.ge(q.MC);
+  } else {
+    at::Tensor tok = q.tok_out, lp = q.lp_out;
+    if (mode == kGreedy && first_n >= 0) {
+      check_rc(wtt_greedy_argmax(logits.data_ptr<float>(), q.tokens.data_ptr<int>(), sup, beg,
+                                 q.tok_out.data_ptr<int>(), q.lp_out.data_ptr<float>(), G, V,
+                                 kCacheSlots, first_n, P, 1, eot, ts, e.stream),
+               "greedy_argmax");
+      res->n.greedy_launches++;
+    } else if (mode == kGreedy) {
+      check_rc(wtt_greedy_argmax_state(logits.data_ptr<float>(), q.tokens.data_ptr<int>(),
+                                       q.state.data_ptr<int>(), sup, beg, q.tok_out.data_ptr<int>(),
+                                       q.lp_out.data_ptr<float>(), state_counter(e, 0), G, V,
+                                       kCacheSlots, 1, eot, ts, e.stream),
+               "greedy_argmax_state");
+    } else {
+      // the filters package at n_tokens = a view of the state, then the
+      // engine's draw (torch.multinomial's: argmax of probs over Exp(1)
+      // noise) from the default generator, without host-side checks
+      at::Tensor filtered = e.run("filters", {logits, q.tokens, q.state.narrow(0, kNTokens, 1),
+                                              e.suppress_pen, e.begin_pen})[0];
+      outputs->push_back(filtered);
+      at::Tensor probs = at::softmax(filtered * q.t_scale, -1);
+      at::Generator gen = at::globalContext().defaultGenerator(at::Device(at::kCUDA, 0));
+      at::Tensor noise = at::empty_like(probs).exponential_(1, gen);
+      tok = (probs / noise).argmax(-1).to(at::kInt);
+      lp = at::log_softmax(filtered, -1).gather(1, tok.unsqueeze(1).to(at::kLong)).select(1, 0);
+    }
+    done = greedy_tail(q, tok, lp, live, eot);
+  }
+  // one more token where live; live stays while some row is not done
+  at::Tensor live_now = q.state.narrow(0, kLive, 1);
+  q.state.add_(q.advance * live_now);
+  live_now.mul_(done.all().logical_not().to(at::kInt));
+  q.live_host.copy_(live_now, /*non_blocking=*/true);
+}
+
+// One pass of the loop body in a phase (engine._step + _update): pos =
+// n_tokens - 1 and the last tokens from the state, the phase's step
+// package, the update at the loop state.
+void body(Engine& e, Program& q, Mode mode, const Phase& ph, std::vector<at::Tensor>* outputs,
+          WindowResult* res) {
+  q.pos.copy_(q.state.select(0, kNTokens) - 1);
+  q.last.copy_(q.tokens.gather(1, q.pos.to(at::kLong).reshape({1, 1}).expand({q.G, 1})).select(1, 0));
+  std::vector<at::Tensor> in = {q.last, q.pos, q.cache};
+  if (mode == kBeam) in.push_back(q.src);
+  in.push_back(q.ck);
+  in.push_back(q.cv);
+  at::Tensor logits = e.run(mode == kBeam ? ph.beam : ph.greedy, in)[0];
+  outputs->push_back(logits);
+  update(e, q, mode, logits, -1, outputs, res);
+}
+
+// The body's graph of (mode, phase window), captured at first use (engine
+// FusedEngine._capture): a warm-up on the side stream at live = 0, which
+// writes nothing but slot n_tokens - 1's K/V (the next pass rewrites it) and
+// applies the pending beam reorder (src is the identity after it), runs each
+// package once before the capture; then the loop state, the pinned flag and
+// the generator are put back.
+void* body_graph(Engine& e, Program& q, Mode mode, const Phase& ph, WindowResult* res) {
+  auto key = std::make_pair((int)mode, ph.window);
+  auto it = q.graphs.find(key);
+  if (it != q.graphs.end()) return it->second.graph;
+  double t0 = now_s();
+  at::Tensor saved = q.state.clone();
+  at::Generator gen = at::globalContext().defaultGenerator(at::Device(at::kCUDA, 0));
+  at::Tensor gen_state;
+  if (mode == kSample) {
+    std::lock_guard<std::mutex> lock(gen.mutex());
+    gen_state = gen.get_state();
+  }
+  q.state.narrow(0, kLive, 1).fill_(0);
+  Program::Captured& c = q.graphs[key];
+  try {  // nothing falls back to the uncaptured body, --serve included
+    std::vector<at::Tensor> warm;
+    body(e, q, mode, ph, &warm, res);
+    res->n.bodies++;
+    check_graph(wtt_graph_new(&c.graph), "creating a CUDA graph");
+    if (mode == kSample) check_graph(wtt_graph_register_generator(c.graph), "registering the generator");
+    check_graph(wtt_graph_capture_begin(c.graph), "beginning the loop body's capture");
+    body(e, q, mode, ph, &c.outputs, res);
+    check_graph(wtt_graph_capture_end(c.graph), "capturing the loop body");
+  } catch (const std::exception& ex) {
+    die(std::string("capturing the loop body failed: ") + ex.what());
+  }
+  q.state.copy_(saved);
+  // the warm-up's flag (0) would reach the host's next read of an earlier
+  // pass's flag: put back the live flag it replaced
+  q.live_host.copy_(saved.narrow(0, kLive, 1));
+  if (mode == kSample) {
+    std::lock_guard<std::mutex> lock(gen.mutex());
+    gen.set_state(gen_state);
+  }
+  res->n.captures++;
+  res->n.capture_s += now_s() - t0;
+  return c.graph;
+}
+
 // FusedEngine.run for one audio: greedy (G = 1) or beam search over G =
-// beam_size rows; at T > 0 the filters graph and the engine's draw.
+// beam_size rows; at T > 0 the filters package and the engine's draw.
+// Prefill and step 0 run eagerly; then the body once per token, phase by
+// phase, replayed from its graph (or uncaptured with --no-capture).
 WindowResult decode_window(Engine& e, bool use_beam, const at::Tensor& ck, const at::Tensor& cv,
                            float temperature, int32_t seed) {
   const Pipeline& p = e.p;
-  const int G = use_beam ? p.beam_size : 1, MC = use_beam ? p.beam_size : 1;
+  const Mode mode = use_beam ? kBeam : temperature > 0 ? kSample : kGreedy;
   const int P = p.sample_begin, V = (int)p.n_vocab, eot = (int)p.eot;
-  const int ts = (int)p.timestamp_begin;
-  auto cuda_i32 = at::TensorOptions().dtype(at::kInt).device(at::kCUDA);
-  auto cuda_f32 = at::TensorOptions().dtype(at::kFloat).device(at::kCUDA);
+  WindowResult res;
   double t0 = now_s();
-
-  std::vector<int32_t> initial(kCacheSlots, 0);
-  std::copy(p.initial_tokens.begin(), p.initial_tokens.end(), initial.begin());
-  at::Tensor first = at::from_blob(initial.data(), {1, kCacheSlots}, at::kInt).to(at::kCUDA);
-  std::vector<at::Tensor> pre = e.run("prefill", {first.narrow(1, 0, P).contiguous(), ck, cv});
-  at::Tensor logits = pre[0].expand({G, V}).contiguous();
-  at::Tensor kv = pre[2];  // (L, 2, 1, P, d)
-  at::Tensor cache = at::zeros({kv.size(0), 2, G, kCacheSlots, kv.size(4)}, kv.options());
-  cache.narrow(3, 0, P).copy_(kv.expand({kv.size(0), 2, G, P, kv.size(4)}));
-  at::Tensor toks = first.expand({G, kCacheSlots}).contiguous();
-  at::Tensor sum_lp = at::zeros({G}, cuda_f32);
-  at::Tensor pool_tokens = at::zeros({1, MC, kCacheSlots + 1}, cuda_i32);
-  at::Tensor pool_scores = at::full({1, MC}, -INFINITY, cuda_f32);
-  at::Tensor pool_lengths = at::zeros({1, MC}, cuda_i32);
-  at::Tensor pool_count = at::zeros({1}, cuda_i32);
-  at::Tensor pos = at::zeros({}, cuda_i32);
-  at::Tensor src;
-  at::Generator gen;
-  if (!use_beam && temperature > 0) {
+  Program& q = e.program(use_beam);
+  const int G = q.G;
+  std::vector<at::Tensor> pre = e.run("prefill", {e.first.narrow(1, 0, P).contiguous(), ck, cv});
+  start(e, q, pre[2], ck, cv, temperature);
+  if (mode == kSample) {
     // the engine's torch.Generator(device).manual_seed(seed): seed set,
-    // Philox offset 0
-    gen = at::globalContext().defaultGenerator(at::Device(at::kCUDA, 0));
+    // Philox offset 0; a replay reads and advances the generator's state
+    at::Generator gen = at::globalContext().defaultGenerator(at::Device(at::kCUDA, 0));
     std::lock_guard<std::mutex> lock(gen.mutex());
     gen.set_current_seed((uint64_t)seed);
   }
+  std::vector<at::Tensor> step0;
+  update(e, q, mode, pre[0].expand({G, V}).contiguous(), P, &step0, &res);
 
-  WindowResult res;
-  int n = P, step = 0;
-  for (;;) {
-    double t_step = now_s();
-    if (step > 0) {
-      at::Tensor last = toks.select(1, n - 1).clone();  // a fresh, aligned (G,) buffer
-      pos.fill_(n - 1);
-      logits = use_beam ? e.run("step_beam", {last, pos, cache, src, ck, cv})[0]
-                        : e.run("step_greedy", {last, pos, cache, ck, cv})[0];
-    }
-    double t_update = now_s();
-    res.graph_s += t_update - t_step;
-    at::Tensor done;
-    if (use_beam) {
-      at::Tensor new_toks = at::empty_like(toks), new_src = at::empty({G}, cuda_i32);
-      at::Tensor new_lp = at::empty({G}, cuda_f32);
-      check_rc(wtt_beam_update(logits.data_ptr<float>(), toks.data_ptr<int>(), sum_lp.data_ptr<float>(),
-                               pool_tokens.data_ptr<int>(), pool_scores.data_ptr<float>(),
-                               pool_lengths.data_ptr<int>(), pool_count.data_ptr<int>(),
-                               e.suppress_pen.data_ptr<float>(), e.begin_pen.data_ptr<float>(),
-                               new_toks.data_ptr<int>(), new_src.data_ptr<int>(),
-                               new_lp.data_ptr<float>(), 1, G, V, kCacheSlots, MC, n, P, step, 1,
-                               eot, ts, e.stream),
-               "beam_update");
-      res.beam_launches++;
-      toks = new_toks, src = new_src, sum_lp = new_lp;
-      done = pool_count.ge(MC);
-    } else {
-      at::Tensor next, current;
-      if (temperature == 0) {
-        next = at::empty({1}, cuda_i32), current = at::empty({1}, cuda_f32);
-        check_rc(wtt_greedy_argmax(logits.data_ptr<float>(), toks.data_ptr<int>(),
-                                   e.suppress_pen.data_ptr<float>(), e.begin_pen.data_ptr<float>(),
-                                   next.data_ptr<int>(), current.data_ptr<float>(), 1, V,
-                                   kCacheSlots, n, P, 1, eot, ts, e.stream),
-                 "greedy_argmax");
-        res.greedy_launches++;
+  const std::vector<Phase>& phases = e.loop.phases;
+  const int lag = e.loop.done_lag;
+  int n = P + 1, step = 1, pending = 0;
+  bool done = false;
+  for (size_t i = 0; i < phases.size() && !done; i++) {
+    // a phase writes the slots below its window; the last up to the whole cache
+    const int limit = i + 1 < phases.size() ? phases[i].window : kCacheSlots;
+    if (!(step < p.sample_len && n < limit)) continue;
+    void* graph = e.capture ? body_graph(e, q, mode, phases[i], &res) : nullptr;
+    while (step < p.sample_len && n < limit) {
+      if (graph) {
+        check_graph(wtt_graph_replay(graph), "replaying the loop body");
+        res.n.replays++;
       } else {
-        at::Tensor filtered = e.run("filters", {logits, toks, at::full({1}, n, cuda_i32),
-                                                e.suppress_pen, e.begin_pen})[0];
-        at::Tensor probs = at::softmax(filtered / (double)temperature, -1);
-        next = at::multinomial(probs, 1, false, gen).select(1, 0).to(at::kInt);
-        current = at::log_softmax(filtered, -1).gather(1, next.unsqueeze(1).to(at::kLong)).select(1, 0);
+        std::vector<at::Tensor> outputs;
+        body(e, q, mode, phases[i], &outputs, &res);
+        res.n.bodies++;
       }
-      // GreedyDecoder.update's tail: rows that already ended stay at EOT
-      at::Tensor already = toks.select(1, n - 1).eq(eot);
-      sum_lp = sum_lp + at::where(already, 0.0, current);
-      next = at::where(already, eot, next);
-      toks.select(1, n).copy_(next);
-      done = next.eq(eot);
+      n++, step++;
+      // the done flag as the pass `lag` back left it, after its event
+      e.pass_events[(size_t)(pending % (lag + 1))].record(*e.side);
+      if (pending++ < lag) continue;
+      double t_read = now_s();
+      e.pass_events[(size_t)((pending - 1 - lag) % (lag + 1))].synchronize();
+      done = q.live_host.data_ptr<int32_t>()[0] == 0;
+      res.read_s += now_s() - t_read;
+      res.n.done_reads++;
+      if (done) break;
     }
-    n++, step++;
-    double t_read = now_s();
-    res.update_s += t_read - t_update;
-    bool finished = done.all().item<bool>();
-    res.read_s += now_s() - t_read;
-    if (finished || step >= p.sample_len || n >= kCacheSlots) break;
   }
-  e.greedy_launches += res.greedy_launches;
-  e.beam_launches += res.beam_launches;
-  res.steps = step;
+
+  const int n_final = q.state.select(0, kNTokens).item<int>();
+  res.steps = n_final - P;
   res.no_speech = pre[1].item<float>();
-  at::Tensor htoks = toks.cpu(), hlp = sum_lp.cpu();
+  at::Tensor counters = e.state_counters.cpu();
+  res.n.greedy_state_launches = counters.data_ptr<int64_t>()[0] - e.totals.greedy_state_launches;
+  res.n.beam_state_launches = counters.data_ptr<int64_t>()[1] - e.totals.beam_state_launches;
+  e.totals.add(res.n);
+  at::Tensor htoks = q.tokens.cpu(), hlp = q.sum_lp.cpu();
   const int32_t* tk = htoks.data_ptr<int32_t>();
   const float* lp = hlp.data_ptr<float>();
   if (!use_beam) {
     res.sum_lp = lp[0];
-    for (int i = P; i < n && tk[i] != eot; i++) res.seq.push_back(tk[i]);
+    for (int i = P; i < n_final && tk[i] != eot; i++) res.seq.push_back(tk[i]);
   } else {
     // FusedEngine's finalize + MaximumLikelihoodRanker (wtpu_transcribe.cpp):
     // finished candidates topped up with live beams by sum_logprob, ranked
     // by score / length (length_penalty None)
-    at::Tensor ftok = pool_tokens.cpu(), fscore = pool_scores.cpu(), flen = pool_lengths.cpu();
-    int fcount = std::min(pool_count.item<int>(), MC);
+    at::Tensor ftok = q.pool_tokens.cpu(), fscore = q.pool_scores.cpu(), flen = q.pool_lengths.cpu();
+    int fcount = std::min(q.pool_count.item<int>(), q.MC);
     struct Cand {
       std::vector<int32_t> seq;
       double score;
@@ -553,7 +873,7 @@ WindowResult decode_window(Engine& e, bool use_beam, const at::Tensor& ck, const
     for (int b : order) {
       if ((int)cands.size() >= G) break;
       Cand c;
-      for (int j = P; j < n; j++) c.seq.push_back(tk[(size_t)b * kCacheSlots + j]);
+      for (int j = P; j < n_final; j++) c.seq.push_back(tk[(size_t)b * kCacheSlots + j]);
       c.score = lp[b];
       cands.push_back(std::move(c));
     }
@@ -627,7 +947,7 @@ bool transcribe_file(Engine& e, const std::string& audio_path, bool beam, int ma
   std::string text;
   int64_t seek = 0;
   int n_windows = 0;
-  const int64_t greedy0 = e.greedy_launches, beam0 = e.beam_launches;
+  const Counts before = e.totals;
   double t_loop = now_s();
   while (seek < content_frames && n_windows < max_windows) {
     at::Tensor window =
@@ -659,14 +979,19 @@ bool transcribe_file(Engine& e, const std::string& audio_path, bool beam, int ma
               "[wtt] {\"window\": %d, \"seek\": %lld, \"temperature\": %.1f, \"seed\": %d, "
               "\"beam\": %s, \"accepted\": %s, \"skipped\": %s, \"tokens\": %zu, \"steps\": %d, "
               "\"avg_logprob\": %.6f, \"no_speech_prob\": %.6f, \"compression_ratio\": %.6f, "
-              "\"decode_ms\": %.3f, \"ms_per_token\": %.4f, \"graph_ms_per_token\": %.4f, "
-              "\"update_ms_per_token\": %.4f, \"read_ms_per_token\": %.4f, "
-              "\"greedy_launches\": %lld, \"beam_launches\": %lld%s%s}\n",
+              "\"loop\": \"%s\", \"decode_ms\": %.3f, \"ms_per_token\": %.4f, "
+              "\"read_ms_per_token\": %.4f, \"replays\": %lld, \"bodies\": %lld, "
+              "\"captures\": %lld, \"capture_s\": %.4f, \"done_reads\": %lld, "
+              "\"greedy_launches\": %lld, \"beam_launches\": %lld, "
+              "\"greedy_state_launches\": %lld, \"beam_state_launches\": %lld%s%s}\n",
               n_windows, (long long)seek, temp, seed, beam && temp == 0.0f ? "true" : "false",
               accepted ? "true" : "false", accepted && skipped ? "true" : "false", res.seq.size(),
-              res.steps, avg_lp, res.no_speech, ratio, res.seconds * 1e3, res.seconds * per,
-              res.graph_s * per, res.update_s * per, res.read_s * per,
-              (long long)res.greedy_launches, (long long)res.beam_launches,
+              res.steps, avg_lp, res.no_speech, ratio, e.capture ? "captured" : "body",
+              res.seconds * 1e3, res.seconds * per, res.read_s * per, (long long)res.n.replays,
+              (long long)res.n.bodies, (long long)res.n.captures, res.n.capture_s,
+              (long long)res.n.done_reads, (long long)res.n.greedy_launches,
+              (long long)res.n.beam_launches, (long long)res.n.greedy_state_launches,
+              (long long)res.n.beam_state_launches,
               print_tokens ? ", \"token_ids\": " : "", print_tokens ? json_ints(res.seq).c_str() : "");
       if (accepted) break;
     }
@@ -685,11 +1010,18 @@ bool transcribe_file(Engine& e, const std::string& audio_path, bool beam, int ma
     n_windows++;
   }
   double loop_s = now_s() - t_loop;
+  Counts file = e.totals;  // this file's counts
+  file.add(before, -1);
   fprintf(stderr,
           "[wtt] {\"file\": \"%s\", \"windows\": %d, \"seconds\": %.3f, \"audio_s\": %.3f, "
-          "\"greedy_launches\": %lld, \"beam_launches\": %lld}\n",
+          "\"greedy_launches\": %lld, \"beam_launches\": %lld, \"greedy_state_launches\": %lld, "
+          "\"beam_state_launches\": %lld, \"replays\": %lld, \"bodies\": %lld, \"captures\": %lld, "
+          "\"capture_s\": %.4f, \"done_reads\": %lld}\n",
           json_escape(audio_path).c_str(), n_windows, loop_s, (double)n_samples / p.sample_rate,
-          (long long)(e.greedy_launches - greedy0), (long long)(e.beam_launches - beam0));
+          (long long)file.greedy_launches, (long long)file.beam_launches,
+          (long long)file.greedy_state_launches, (long long)file.beam_state_launches,
+          (long long)file.replays, (long long)file.bodies, (long long)file.captures, file.capture_s,
+          (long long)file.done_reads);
   *text_out = text;
   return true;
 }
@@ -754,7 +1086,7 @@ int serve(Engine& e, const std::string& sock_path) {
 int run_main(int argc, char** argv) {
   std::string dir, audio_path, serve_path;
   int max_windows = 1 << 30;
-  bool print_tokens = false, beam = false, no_fallback = false;
+  bool print_tokens = false, beam = false, no_fallback = false, no_capture = false;
   for (int i = 1; i < argc; i++) {
     std::string a = argv[i];
     if (a == "--max-windows" && i + 1 < argc) max_windows = atoi(argv[++i]);
@@ -762,18 +1094,20 @@ int run_main(int argc, char** argv) {
     else if (a == "--beam") beam = true;
     else if (a == "--serve" && i + 1 < argc) serve_path = argv[++i];
     else if (a == "--no-fallback") no_fallback = true;  // pin T = 0 (parity checks)
+    else if (a == "--no-capture") no_capture = true;    // the loop body uncaptured
     else if (dir.empty()) dir = a;
     else audio_path = a;
   }
   if (dir.empty() || (audio_path.empty() && serve_path.empty()))
     die("usage: wtt_transcribe <pipeline_dir> <audio> [--max-windows N] [--tokens] [--beam] "
-        "[--no-fallback] | <pipeline_dir> --serve SOCK");
+        "[--no-fallback] [--no-capture] | <pipeline_dir> --serve SOCK [--no-capture]");
   c10::InferenceMode guard;
   // float32 products and convolutions in full float32 (the port's parity
   // rule); a bf16 pipeline is unaffected
   at::globalContext().setAllowTF32CuBLAS(false);
   at::globalContext().setAllowTF32CuDNN(false);
   Engine e;
+  e.capture = !no_capture;
   engine_init(e, dir, /*load_beam=*/beam || !serve_path.empty());
   if (!serve_path.empty()) return serve(e, serve_path);
   std::string text, err;

@@ -27,6 +27,7 @@ from torch.export.graph_signature import InputKind, OutputKind
 from torch.utils import _pytree
 
 from . import quant
+from .engine import DONE_LAG, PHASES, _last_window
 from .models import graphs
 from .ops.beam_kernel import apply_filters, build_penalty_vectors
 from .tokenizer import ASSETS, get_tokenizer
@@ -173,20 +174,51 @@ def _prefill(n_head, sot_index, no_speech, int8):
     return fn
 
 
-def _step(n_head, int8, beam):
-    """One fixed-shape step (graphs.decode_step_fixed): the cache is
-    written in place, the logits (B, V) f32 returned. The beam graph takes
-    the reorder `src` after the cache; the greedy graph has none."""
+def _step(n_head, int8, beam, window=None):
+    """One fixed-shape step (graphs.decode_step_fixed) on the 448-slot
+    cache, attending over its first `window` slots (None: all): the cache
+    is written in place, the logits (B, V) f32 returned. The beam graph
+    takes the reorder `src` after the cache; the greedy graph has none."""
 
     def greedy(dec, tokens, pos, cache, ck, cv):
         ck, cv = _quantized((ck, cv), int8)
-        return graphs.decode_step_fixed(dec, tokens, pos, cache, None, ck, cv, n_head=n_head)[0]
+        return graphs.decode_step_fixed(
+            dec, tokens, pos, cache, None, ck, cv, n_head=n_head, window=window
+        )[0]
 
     def beam_step(dec, tokens, pos, cache, src, ck, cv):
         ck, cv = _quantized((ck, cv), int8)
-        return graphs.decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, n_head=n_head)[0]
+        return graphs.decode_step_fixed(
+            dec, tokens, pos, cache, src, ck, cv, n_head=n_head, window=window
+        )[0]
 
     return beam_step if beam else greedy
+
+
+def step_graph_name(beam: bool, window: int) -> str:
+    """The step package of a mode at a cache window of the loop's phases
+    (engine.PHASES): `step_greedy` / `step_beam` at the whole cache,
+    `step_greedy_w128` and so on below it."""
+    name = "step_beam" if beam else "step_greedy"
+    return name if window >= graphs.CACHE_SLOTS else f"{name}_w{window}"
+
+
+def loop_windows(n_initial: int, sample_len: int) -> list:
+    """The cache windows of the phases a decode of `sample_len` tokens
+    after `n_initial` runs through, in order (engine.PHASES up to
+    engine._last_window; the last phase writes up to the whole cache)."""
+    last = _last_window(n_initial, sample_len)
+    return [w for w in PHASES if w <= last]
+
+
+def loop_manifest(n_initial: int, sample_len: int) -> str:
+    """loop.txt, what the runner's decode loop reads: the done flag's lag
+    in passes (engine.DONE_LAG), then a line a phase, in order, with its
+    cache window and its greedy and beam step packages."""
+    lines = [f"done_lag {DONE_LAG}"]
+    lines += [f"phase {w} {step_graph_name(False, w)} {step_graph_name(True, w)}"
+              for w in loop_windows(n_initial, sample_len)]  # fmt: skip
+    return "\n".join(lines) + "\n"
 
 
 def _filters(sample_begin, eot, timestamp_begin):
@@ -226,12 +258,16 @@ def _suppress_and_blank(tok):
     return suppress, tok.encode(" ") + [tok.eot]
 
 
-def pipeline_graphs(model, *, language="en", task="transcribe", beam_size=5, weights="bf16"):
+def pipeline_graphs(model, *, language="en", task="transcribe", beam_size=5, weights="bf16",
+                    sample_len=446):  # fmt: skip
     """The pipeline's graphs, {name: (fn, example_args, n_params)}, in the
     order they are exported: fn(*example_args) is the graph run eagerly, the
     first argument the weights tree (sorted keys) where n_params > 0, the
-    example tensors on the model's device. weights="int8": prefill and the
-    steps take quant.quantize_decoder's tree and quantize the cross-K/V
+    example tensors on the model's device. Each step mode has a graph at
+    the whole cache and at each lower cache window of the loop's phases
+    that a decode of `sample_len` tokens reaches (`step_graph_name`,
+    `loop_windows`; all three at the default). weights="int8": prefill and
+    the steps take quant.quantize_decoder's tree and quantize the cross-K/V
     inside the graph; the encoder and cross-K/V keep the model's dtype."""
     int8 = quant.check_weights_mode(weights) == "int8"
     dims = model.dims
@@ -262,19 +298,28 @@ def pipeline_graphs(model, *, language="en", task="transcribe", beam_size=5, wei
     pens = (torch.from_numpy(sup_pen).to(dev), torch.from_numpy(begin_pen).to(dev))
     tokens = torch.tensor([initial], dtype=i32, device=dev)
     n_dec, n_step = len(param_leaves(dec)), len(param_leaves(step_dec))
+
+    # one package per cache window of the loop's phases, the cache at 448
+    # slots in each (the JAX export's fused graphs' while_loops): the whole
+    # cache's always, the windows below it where the decode reaches them
+    steps = {}
+    for beam in (False, True):
+        rows = G if beam else 1
+        src = (torch.arange(G, dtype=i32, device=dev),) if beam else ()
+        args = (step_dec, zeros((rows,), i32), pos, zeros((L, 2, rows, slots, d)), *src, ck, cv)
+        for W in (w for w in PHASES if w in loop_windows(P, sample_len) or w == slots):
+            steps[step_graph_name(beam, W)] = (_step(n_head, int8, beam, W), args, n_step)
     return {
         "encoder": (lambda w, m: graphs.encode(w, m, n_head=dims.n_audio_head), (enc, mel),
                     len(param_leaves(enc))),
         "cross_kv": (lambda w, x: graphs.cross_kv(w, x, n_head=n_head), (dec, xa), n_dec),
         "prefill": (_prefill(n_head, 0, no_speech, int8), (step_dec, tokens, ck, cv), n_step),
-        "step_greedy": (_step(n_head, int8, beam=False),
-                        (step_dec, zeros((1,), i32), pos, zeros((L, 2, 1, slots, d)), ck, cv), n_step),
-        "step_beam": (_step(n_head, int8, beam=True),
-                      (step_dec, zeros((G,), i32), pos, zeros((L, 2, G, slots, d)),
-                       torch.arange(G, dtype=i32, device=dev), ck, cv), n_step),
+        "step_greedy": steps.pop("step_greedy"),
+        "step_beam": steps.pop("step_beam"),
         "filters": (_filters(P, tok.eot, tok.timestamp_begin),
                     (zeros((1, dims.n_vocab), torch.float32), zeros((1, slots), i32),
                      torch.full((1,), P, dtype=i32, device=dev), *pens), 0),
+        **steps,
     }  # fmt: skip
 
 
@@ -293,8 +338,11 @@ def export_pipeline(
     """Export everything the native runner (csrc/wtt_transcribe.cpp) needs
     to transcribe without Python (whisper_tpu/export.py export_pipeline):
 
-      encoder, cross_kv, prefill, step_greedy, step_beam, filters
-          .export.pt2 / .spec.json / .spec.txt    (weights as inputs)
+      encoder, cross_kv, prefill, step_greedy, step_beam, filters,
+      step_greedy_w128 / _w256, step_beam_w128 / _w256
+          .export.pt2 / .spec.json / .spec.txt    (weights as inputs; the
+                                                  windows below 448 where a
+                                                  decode of sample_len reaches)
           .aoti.pt2                               (compile=True)
       encoder.params.bin / decoder.params.bin     (weight blobs)
       decoder_int8.params.bin                     (weights="int8")
@@ -302,6 +350,9 @@ def export_pipeline(
       suppress_pen.bin / begin_pen.bin            (the update kernels' penalties)
       <vocab>.tiktoken                            (for native detokenization)
       pipeline.txt                                (the JAX export's manifest)
+      loop.txt                                    (the decode loop's phases
+                                                  and step packages, and
+                                                  its done lag: loop_manifest)
       timings.json                                (each graph's export and compile s)
 
     The graphs are `pipeline_graphs`'. `compile` (default: the model is on
@@ -314,7 +365,8 @@ def export_pipeline(
     dims = model.dims
     tok = _tokenizer(model, language, task)
     initial = list(tok.sot_sequence)
-    specs = pipeline_graphs(model, language=language, task=task, beam_size=beam_size, weights=weights)
+    specs = pipeline_graphs(model, language=language, task=task, beam_size=beam_size,
+                            weights=weights, sample_len=sample_len)  # fmt: skip
     _write_params_blob(out_dir, "encoder", specs["encoder"][1][0])
     n_dec = _write_params_blob(out_dir, "decoder", specs["cross_kv"][1][0])
     if specs["prefill"][2] != n_dec:  # int8: the steps' quantized tree
@@ -350,18 +402,27 @@ def export_pipeline(
     ]
     with open(os.path.join(out_dir, "pipeline.txt"), "w") as f:
         f.write("\n".join(manifest) + "\n")
+    with open(os.path.join(out_dir, "loop.txt"), "w") as f:
+        f.write(loop_manifest(len(initial), sample_len))
 
-    # ---- the graphs, traced on the model's device ----
+    # ---- the graphs, traced on the model's device; each compiles while the
+    # next is traced ----
     timings = {}
-    for name, (fn, args, n_params) in specs.items():
-        spec = export_graph(out_dir, fn, args, name=name, n_params=n_params)
-        timings[name] = {"export_s": spec["export_s"]}
+
+    def exported():
+        for name, (fn, args, n_params) in specs.items():
+            spec = export_graph(out_dir, fn, args, name=name, n_params=n_params)
+            timings[name] = {"export_s": spec["export_s"]}
+            yield os.path.join(out_dir, f"{name}.export.pt2")
+
     if compile:
         from .runtime.aoti import compile_graphs
 
-        paths = [os.path.join(out_dir, f"{name}.export.pt2") for name in specs]
-        for name, (seconds, cached) in zip(timings, compile_graphs(paths, cache_dir)):
+        for name, (seconds, cached) in zip(specs, compile_graphs(exported(), cache_dir)):
             timings[name].update(compile_s=seconds, cached=cached)
+    else:
+        for _ in exported():
+            pass
     with open(os.path.join(out_dir, "timings.json"), "w") as f:
         json.dump(timings, f, indent=1)
     return out_dir

@@ -89,24 +89,29 @@ def compile_graphs(export_paths, cache_dir=None, workers=None):
     `workers` caps the processes (default: half the CPUs); a worker takes
     the next graph when it is done with one, in the order given: a warm
     worker compiles a graph in a fraction of the time a process takes for
-    its first (PERF.md §6). Returns [(seconds, cached)] in the order given;
-    a failed compile raises."""
+    its first (PERF.md §6). `export_paths` may be any iterable: each graph
+    is submitted as the iterable yields it, so a caller can trace the next
+    one while the first compile. Returns [(seconds, cached)] in the order
+    given; a failed compile raises."""
     if not torch.cuda.is_available():
         raise RuntimeError("AOTInductor packages are compiled for a CUDA card; none is available")
     dev = torch.cuda.current_device()
-    firsts = {}
-    for path in export_paths:
-        firsts.setdefault(_package_key(path, dev), path)
-    workers = min(len(firsts), workers or max(1, (os.cpu_count() or 2) // 2))
+    paths, keys, firsts = [], [], {}
     ctx = multiprocessing.get_context("spawn")
+    workers = workers or max(1, (os.cpu_count() or 2) // 2)
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        futures = {key: pool.submit(_compile_into_dir, p, cache_dir) for key, p in firsts.items()}
-        done = {key: f.result() for key, f in futures.items()}
+        for path in export_paths:
+            key = _package_key(path, dev)
+            if key not in firsts:
+                firsts[key] = (path, pool.submit(_compile_into_dir, path, cache_dir))
+            paths.append(path)
+            keys.append(key)
+        done = {key: future.result() for key, (_, future) in firsts.items()}
     out = []
-    for path in export_paths:
-        key = _package_key(path, dev)
-        if firsts[key] != path:
-            shutil.copyfile(firsts[key].removesuffix(".export.pt2") + ".aoti.pt2",
+    for path, key in zip(paths, keys):
+        first = firsts[key][0]
+        if first != path:
+            shutil.copyfile(first.removesuffix(".export.pt2") + ".aoti.pt2",
                             path.removesuffix(".export.pt2") + ".aoti.pt2")  # fmt: skip
             out.append((0.0, True))
         else:
