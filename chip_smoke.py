@@ -30,7 +30,7 @@ Phases (any failure raises and the script exits non-zero):
      where NaN (widths 3, 5 and 13 likewise on 300 rows); at T = 1499 and
      1502 and on an offset view 4 bytes past a 16-byte boundary (the
      scalar-load build); then 1,000 back-to-back launches. The greedy
-     kernel's per-row-length launch (the mesh's speculative loop's): its verify
+     kernel's per-row-length launch (the speculative host loop's): its verify
      layout at B = 5, 10 and 20 (A = 1, 2 and 4 audios of K + 1 = 5 rows at
      lengths n[a] + j) and its draft-step layout at B = 1, 2 and 4 (one
      history per row at its own length, verified tokens past it), rows at
@@ -189,19 +189,29 @@ Phases (any failure raises and the script exits non-zero):
      tokens a round); the greedy launches of these decodes count on the
      main path;
   parallel. the mesh (whisper_tpu_torch/parallel/), ranks spawned from
-     here after the build (parallel/launch.py): (a) a world of one over
-     NCCL, the turbo bf16 model transcribing the clip greedy and at beam 5
-     (T = 0) plain and under set_mesh(make_mesh()) in turns, tokens equal,
-     one fine-tune step with and without the mesh, equal losses, and one
-     NCCL all-reduce's host ms; (b) two ranks sharing the card over gloo,
-     turbo width with the encoder cut to 8 of 32 layers, float32, TF32 off:
-     DataParallelEngine at dp = 2 and tp = 2 on two windows, greedy and
-     beam 5, tokens, steps and beam pools equal to the plain engine's; the
-     speculative engine at dp = 2 (plain greedy's tokens); sp_encode at sp
-     = 2 and pp_encode at pp = 2 within 1e-3 of encode; a 2-step tp = 2
-     fine-tune within rtol 1e-4 of the single-device losses;
+     here after the build (parallel/launch.py); the mesh's engines run the
+     loop programs, with the collectives inside the body: (a) a world of
+     one over NCCL, the turbo bf16 model transcribing the clip greedy, at
+     beam 5 (T = 0) and greedy with the 5g draft, plain and under
+     set_mesh(make_mesh()) in turns: the mesh's loop bodies and rounds
+     captured and replayed, tokens equal to the plain model's, launches
+     held to the records; (a') one NCCL all-reduce and one
+     all_gather_into_tensor captured in a CUDA graph and replayed, equal
+     to the uncaptured collectives; one fine-tune step with and without
+     the mesh, equal losses, and one NCCL all-reduce's host ms; (b) two
+     ranks sharing the card over gloo, turbo width with the encoder cut to
+     8 of 32 layers, float32, TF32 off: DataParallelEngine at dp = 2 and
+     tp = 2 on two windows, greedy and beam 5, the body run uncaptured
+     (gloo), tokens, steps and beam pools equal to the plain engine's,
+     the same passes on both ranks; the speculative engine at dp = 2
+     (plain greedy's tokens; its round uses no group, so it captures);
+     sp_encode at sp = 2 and pp_encode at pp = 2 within 1e-3 of encode; a
+     2-step tp = 2 fine-tune within rtol 1e-4 of the single-device losses;
      transcribe(jfk, word_timestamps=True) at tp = 2, words and times equal
-     to the plain model's; a gloo all-reduce's host ms. Per-rank ms per
+     to the plain model's; a gloo all-reduce's host ms; (c) where the
+     machine has two cards or more, a world of two over NCCL, one card a
+     rank, dp = 2 and tp = 2 greedy, captured, tokens equal to the plain
+     engine's (on one card a line says it did not run). Per-rank ms per
      token beside the plain engine's, each part's seconds; the mesh runs'
      launches, summed over the ranks, count on the main path;
   6. profile one greedy window and one beam-5 window of decode() at turbo
@@ -250,7 +260,8 @@ Every launch check holds the update kernels' counts to what the engines'
 records say they launched (engine_want): a captured loop's step 0
 scalar, each replay and uncaptured pass at the loop state; a speculative
 run's step 0 scalar, K + 2 per-row loop-state launches a round pass; the
-mesh's eager loops once a step (per-row for its speculative engine). The
+host loops (5g's and the captured-loop phase's eager variants) once a step
+(per-row for the speculative one). The
 loop-state launches are counted on the card by the kernels themselves (a
 replay makes no Python call).
 Exits non-zero, printing no result, where CUDA is not available.
@@ -778,9 +789,9 @@ def rows_cases(C):
 
 
 def check_greedy_rows():
-    """The per-row-length greedy launch (the mesh's speculative engine's
-    draft steps and verify pass) against the plain version on the same
-    lengths: every case of rows_cases, 1,000 back-to-back launches
+    """The per-row-length greedy launch (the speculative host loop's draft
+    steps and verify pass, a comparison variant) against the plain version
+    on the same lengths: every case of rows_cases, 1,000 back-to-back launches
     alternating two inputs; then its device ms at B = 5 and 20 (verify)
     and B = 1 and 2 (draft step) beside the scalar launch on the same
     logits and history (all rows at one length), and the scalar launch at
@@ -1714,12 +1725,12 @@ def reset_launch_counts():
 def launch_counts():
     """Each kernel's launches since the last reset: the update kernels'
     scalar launches (step 0 of a captured loop or speculative run, every
-    step of the mesh's eager loop), their loop-state launches (a captured
+    step of the host loop), their loop-state launches (a captured
     loop's replays and its uncaptured passes, counted on the card by the
     kernels themselves: a replay makes no Python call), the greedy
     kernel's per-row loop-state launches (the speculative round's draft and
     verify passes, counted on the card too) and its per-row-length ones
-    (the mesh's speculative host loop) apart."""
+    (the speculative host loop) apart."""
     state = bk.state_launches()
     return {
         "greedy_argmax": bk.greedy_argmax.launches,
@@ -1754,7 +1765,7 @@ def engine_want(runs, aligned=0, spec=()):
     replay and uncaptured pass (loop state: its capture warm-ups too); the
     eager loop once per step; a speculative run once at step 0 (scalar),
     then K + 1 draft launches and one verify launch per replay and
-    uncaptured round pass (per-row at the loop state), or, on the mesh's
+    uncaptured round pass (per-row at the loop state), or, on the
     host loop, one per-row launch per draft step and verify round. Each
     speculative record's own greedy count (the card's, for a program) must
     say the same."""
@@ -1842,7 +1853,9 @@ def main_path(model, audio, draft=None, **kw):
     steps = sum(r.steps for r in runs) + sum(r.steps for r in spec)
     decode_s = sum(r.seconds for r in runs) + sum(r.seconds for r in spec)
     stats = dict(
-        replays=sum(r.replays for r in runs), captures=sum(r.captures for r in runs),
+        loops=sorted({r.loop for r in runs}), captured=sorted({r.captured for r in runs}),
+        replays=sum(r.replays for r in runs), bodies=sum(r.bodies for r in runs),
+        captures=sum(r.captures for r in runs),
         capture_s=sum(r.capture_s for r in runs), done_reads=sum(r.done_reads for r in runs),
         programs=program_stats(runs),
         wall_s=wall,
@@ -1863,7 +1876,8 @@ def main_path(model, audio, draft=None, **kw):
             verify_rounds=rounds, tokens_decoded=sum(r.steps for r in spec),
             acceptance=accepted / max(rounds * model.draft_k, 1),
             tokens_per_round=sum(r.steps for r in spec) / max(rounds, 1),
-            spec_loops=sorted({r.loop for r in spec}), spec_replays=sum(r.replays for r in spec),
+            spec_loops=sorted({r.loop for r in spec}), spec_captured=sorted({r.captured for r in spec}),
+            spec_replays=sum(r.replays for r in spec),
             spec_bodies=sum(r.bodies for r in spec), spec_captures=sum(r.captures for r in spec),
             spec_capture_s=sum(r.capture_s for r in spec),
         )  # fmt: skip
@@ -2770,7 +2784,7 @@ SPEC_VARIANTS = ("captured", "body", "eager")
 def spec_engine(model, draft, k, variant):
     """A speculative engine running its loop as `variant`: "captured" (the
     round replayed from its graph), "body" (the same round run eagerly on
-    the card) or "eager" (the host loop the mesh's engine keeps, a host read
+    the card) or "eager" (the host loop, a comparison variant, a host read
     of every row's n, draft position and done flag a round)."""
     spec = SpeculativeEngine(model, draft, k=k)
     spec.capture = variant == "captured"
@@ -3184,8 +3198,8 @@ LOOP_PROFILE_STEPS = 24  # the captured-loop phase's profiled steps (nine profil
 def loop_engine(model, variant):
     """A fresh engine of the model running the loop as `variant`:
     "captured" (the body replayed from its graphs), "body" (the same body
-    run eagerly on the card) or "eager" (the host loop the mesh's engine
-    keeps, a host read of `completed` each step)."""
+    run eagerly on the card) or "eager" (the host loop, a comparison
+    variant, a host read of `completed` each step)."""
     engine = FusedEngine(model)
     engine.capture = variant == "captured"
     engine.eager_loop = variant == "eager"
@@ -3785,6 +3799,10 @@ def train_phase(model, jfk, card):
 
 
 MESH_ENCODER_LAYERS = 8  # (b)'s turbo-width model: the encoder cut from 32 layers
+# (b)'s and (c)'s engine windows: 128 tokens after the 3-token prompt cross
+# the 128-slot phase edge (the uncaptured body over gloo pays its tp
+# all-reduces a pass, ~30 ms a token at tp = 2 on an NVIDIA H100 80GB HBM3 at 700 W)
+MESH_SAMPLE_LEN = 128
 
 
 def two_windows(model, audio):
@@ -3827,15 +3845,78 @@ def allreduce_ms(group, shape, reps=100):
     return statistics.median(times)
 
 
+def nccl_capture_probe(rows=2, width=1280):
+    """(a'): one dist.all_reduce and one dist.all_gather_into_tensor on the
+    world group, called directly (comm.py does nothing on a group of one),
+    captured in a torch.cuda.CUDAGraph on a side stream after an uncaptured
+    warm-up (the communicator is made at its first collective, which must
+    not happen inside a capture), then replayed on new inputs and held
+    against the same collectives uncaptured on those inputs (exact)."""
+    dist = torch.distributed
+    n = dist.get_world_size()
+    x = torch.zeros((rows, width), device=DEV)
+    reduced, gathered = torch.zeros_like(x), torch.zeros((n * rows, width), device=DEV)
+
+    def body():
+        reduced.copy_(x)
+        dist.all_reduce(reduced)
+        dist.all_gather_into_tensor(gathered, x)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        body()
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    same = True
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, device=DEV, generator=gen))
+        graph.replay()
+        want_reduced, want_gathered = x.clone(), torch.empty_like(gathered)
+        dist.all_reduce(want_reduced)
+        dist.all_gather_into_tensor(want_gathered, x)
+        torch.cuda.synchronize()
+        same = same and torch.equal(reduced, want_reduced) and torch.equal(gathered, want_gathered)
+    if not same:
+        raise AssertionError("(a') the captured NCCL collectives differ from the uncaptured ones")
+    return {"world": n, "backend": dist.get_backend(), "replays": 3, "equal": same}
+
+
+def check_mesh_captured(what, stats):
+    """Every engine run of a main_path() run on the mesh ran the loop
+    program captured: its bodies captured and replayed."""
+    p = "spec_" if "spec_loops" in stats else ""
+    if stats[p + "loops"] != ["program"] or stats[p + "captured"] != [True] or not (
+        stats[p + "replays"] > 0 and stats[p + "captures"] > 0
+    ):
+        raise AssertionError(f"{what}: not the captured loop program: {stats}")
+
+
+def loop_program(run, captured):
+    """Whether an EngineRun or SpecRun ran the loop program as `captured`
+    says: its body captured and replayed, else only uncaptured passes."""
+    if run.loop != "program" or run.captured != captured:
+        return False
+    if captured:
+        return run.replays > 0 and run.captures > 0
+    return run.captures == run.replays == 0 < run.bodies
+
+
 def mesh_world1(audio):
     """(a), in the one rank of a world of one over NCCL: the turbo model
-    (bf16, seed 0) transcribes the clip greedy and at beam 5 (T = 0) in
-    turns plain, then under set_mesh(make_mesh()): the tokens must be
-    equal (dp = tp = 1 runs no collective, so the arithmetic is the plain
-    model's). Then one fine-tune step through make_train_step
-    with and without the mesh: equal losses; and the host ms of one NCCL
-    all-reduce of a decode step's activation at world 1. Returns the mesh
-    runs' launches and each run's ms per token."""
+    (bf16, seed 0) transcribes the clip greedy, at beam 5 (T = 0) and
+    greedy with the 5g draft (bf16), in turns plain, then under
+    set_mesh(make_mesh()), through main_path (the launches held to the
+    records): the mesh's engines capture their loop bodies (dp = tp = 1
+    run no collective, so the arithmetic is the plain model's) and their
+    tokens must equal the plain model's. Then (a') the capture probe; one
+    fine-tune step through make_train_step with and without the mesh: equal
+    losses; and the host ms of one NCCL all-reduce of a decode step's
+    activation at world 1. Returns the mesh runs' launches, each run's ms
+    per token and each part's seconds."""
     from whisper_tpu_torch.finetune import batches, model_tokenizer
     from whisper_tpu_torch.parallel import make_mesh
     from whisper_tpu_torch.parallel.train import make_train_step
@@ -3844,26 +3925,37 @@ def mesh_world1(audio):
     build.load_library()
     model = Whisper(MODEL_DIMS["turbo"], None, device=DEV, compute_dtype=torch.bfloat16, seed=0)
     model.transcribe(audio[: 16000 * 5], language="en", temperature=0.0, verbose=None)  # warm-up
-    runs = {"greedy": dict(temperature=0.0), "beam5": dict(beam_size=5, temperature=0.0)}
-    out, counts = {"backend": torch.distributed.get_backend()}, {}
+    draft = spec_draft(torch.bfloat16)
+    runs = {
+        "greedy": dict(temperature=0.0), "beam5": dict(beam_size=5, temperature=0.0),
+        "greedy_draft": dict(temperature=0.0, draft=draft),
+    }  # fmt: skip
+    out, counts, seconds = {"backend": torch.distributed.get_backend()}, {}, {}
     mesh = make_mesh()
+    tokens = {}
     for name, kw in runs.items():
-        plain, ms = None, {"plain": [], "mesh": []}
+        t = time.perf_counter()
         for which in ("plain", "mesh"):
             model.set_mesh(mesh if which == "mesh" else None)
-            reset_launch_counts()
-            got = segment_tokens(model.transcribe(audio, language="en", verbose=None, **kw))
-            torch.cuda.synchronize()
+            stats, launches, result = main_path(model, audio, **kw)
+            tokens[name, which] = segment_tokens(result)
             if which == "mesh":
-                add_counts(counts, launch_counts())
+                add_counts(counts, launches)
                 out["engine"] = type(model._fused_engine).__name__
-            ms[which].append(engine_ms(model._fused_engine))
-            plain = got if plain is None else plain
-            if got != plain:
-                raise AssertionError(f"(a) {name}: the {which} run's tokens differ from the plain model's")
-        out.update({f"{name}_{k}_ms_per_token": v for k, v in ms.items()})
+                check_mesh_captured(f"(a) {name}", stats)
+            out[f"{name}_{which}_ms_per_token"] = stats["ms_per_token"]
+            out[f"{name}_{which}_captures"] = stats.get("spec_captures", stats["captures"])
+        if tokens[name, "mesh"] != tokens[name, "plain"]:
+            raise AssertionError(f"(a) {name}: the mesh run's tokens differ from the plain model's")
+        seconds[name] = time.perf_counter() - t
     model.set_mesh(None)
+    # bf16: the verify pass's products have other shapes than the step's
+    out["greedy_draft_equals_greedy"] = tokens["greedy_draft", "mesh"] == tokens["greedy", "plain"]
+    t = time.perf_counter()
+    out["nccl_capture_probe"] = nccl_capture_probe()
     out["nccl_allreduce_ms_1x1280"] = allreduce_ms(None, (1, 1, 1280))
+    seconds["nccl_probe"] = time.perf_counter() - t
+    t = time.perf_counter()
     batch = next(batches(train_records(), model_tokenizer(model, "en"), n_mels=128, batch_size=2, max_tokens=128))
     losses = []
     for m in (None, mesh):
@@ -3874,43 +3966,87 @@ def mesh_world1(audio):
         torch.cuda.empty_cache()
     if losses[0] != losses[1] or not np.isfinite(losses[0]):
         raise AssertionError(f"(a) the mesh's fine-tune step loss {losses[1]} != {losses[0]}")
-    out.update(finetune_step_loss=losses[0], launches=counts)
+    seconds["finetune"] = time.perf_counter() - t
+    out.update(finetune_step_loss=losses[0], launches=counts, seconds=seconds)
     return out
 
 
-def mesh_world2(audio, jfk):
-    """(b), in each rank of a world of two sharing the card over gloo: the
+def mesh_engine_parts(model, meshes, mel, captured, beams, counts, out, part, spec_draft_dtype=None):
+    """DataParallelEngine on each mesh of `meshes` on the two windows `mel`,
+    greedy and (in `beams`) beam 5 at T = 0, MESH_SAMPLE_LEN tokens (the
+    128-slot phase edge crossed), against the plain engine on
+    the same engine arguments: equal tokens, step count and beam pools; the
+    loop-body program, captured or not as `captured` says, the launches
+    held to the records (engine_want). With `spec_draft_dtype`, the
+    speculative engine at dp = 2 with the 5g draft: plain greedy's tokens.
+    Fills out["passes"] (each engine run's body passes, which every rank
+    must share) and the ms per token."""
+    from whisper_tpu_torch.parallel import DataParallelEngine, DataParallelSpeculativeEngine
+
+    passes = out.setdefault("passes", {})
+    for beam in beams:
+        what = "beam5" if beam else "greedy"
+        opts = DecodingOptions(language="en", temperature=0.0, beam_size=beam, sample_len=MESH_SAMPLE_LEN)
+        (args, kw), _ = engine_call(model, mel, opts)
+        plain_engine = FusedEngine(model)
+        want = plain_engine.run(*args, **kw)
+        out[f"{what}_plain_ms_per_token"] = engine_ms(plain_engine)
+        for name, mesh in meshes.items():
+            engine = DataParallelEngine(model, mesh)
+            reset_launch_counts()
+            got = engine.run(*args, **kw)
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            add_counts(counts, launched)
+            run = engine.history[-1]
+            n = want[1]
+            same = got[1] == n and np.array_equal(got[0][:, :n], want[0][:, :n])
+            if beam:
+                same = same and np.array_equal(got[4], want[4]) and np.array_equal(got[7], want[7])
+            if not same:
+                raise AssertionError(f"{name} {what}: the engine's tokens differ from the plain engine's")
+            if not loop_program(run, captured) or launched != engine_want([run]):
+                raise AssertionError(f"{name} {what}: {run}, launches {launched} != {engine_want([run])}")
+            passes[f"{what}_{name}"] = run.replays + run.bodies
+            out[f"{what}_{name}_ms_per_token"] = engine_ms(engine)
+            part(f"{what}_{name}")
+        if not beam and spec_draft_dtype is not None:
+            draft = spec_draft(spec_draft_dtype)
+            dck, dcv = draft.cross_kv(draft.encode(mel))
+            spec = DataParallelSpeculativeEngine(model, draft, meshes["dp2"], k=4)
+            reset_launch_counts()
+            got = spec.run(*args, dck, dcv, **kw)
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            add_counts(counts, launched)
+            run = spec.history[-1]
+            n = want[1]
+            if got[1] != n or not np.array_equal(got[0][:, :n], want[0][:, :n]):
+                raise AssertionError("dp2 speculative: tokens differ from plain greedy's")
+            # the round at dp = 2 uses no group (tp = sp = 1): it captures
+            if not loop_program(run, True) or launched != engine_want([], spec=[run]):
+                raise AssertionError(f"dp2 speculative: {run}, launches {launched}")
+            stats = spec.last_stats
+            out["spec_dp2_tokens_per_round"] = sum(stats["emitted"]) / max(sum(stats["rounds"]), 1)
+            # each dp group runs its own rounds: the ranks' passes may differ
+            out["spec_dp2_captured"], out["spec_dp2_passes"] = run.captured, run.replays + run.bodies
+            part("spec_dp2")
+
+
+def world2_setup(axes):
+    """What (b) and (c) share, in each rank of a world of two: the
     turbo-width model with its encoder cut to MESH_ENCODER_LAYERS layers,
-    float32 with TF32 off (seed 0). DataParallelEngine at dp = 2 and at tp
-    = 2 on two windows, greedy and beam 5, against the plain engine on the
-    same engine arguments: equal tokens, step count and beam pools; the
-    speculative engine at tp = 2 with the 5g draft (float32): plain greedy's
-    tokens; sp_encode at sp = 2 and pp_encode at pp = 2 against encode
-    (max abs error, within 1e-3); 2 fine-tune steps at tp = 2 against
-    single-device ones (rtol 1e-4) and the gathered tree's largest
-    difference from the single-device one; transcribe(jfk,
-    word_timestamps=True) at tp = 2 against the plain model: equal words
-    and times; the host ms of one gloo all-reduce over the tp group of a
-    decode step's activation and of a training one. Every rank runs every
-    part, so each plain run shares the card with the other rank's. The
-    speculative engine runs at dp = 2: at tp = 2 its ~1,000 draft steps
-    would each pay the gloo all-reduces (the CPU tests hold it at tp = 2).
-    Returns the mesh runs' launches, ms per token and each part's seconds."""
-    from whisper_tpu_torch.finetune import batches, model_tokenizer
-    from whisper_tpu_torch.parallel import (
-        DataParallelEngine, DataParallelSpeculativeEngine, make_mesh, pp_encode, shard_params,
-        sp_encode,
-    )  # fmt: skip
-    from whisper_tpu_torch.parallel.sharding import gather_params
-    from whisper_tpu_torch.parallel.train import make_train_step
+    float32 with TF32 off (seed 0), a mesh of two ranks on each of `axes`
+    ("dp2", "tp2", ...), the result's dicts (out, counts, seconds) and the
+    part clock: part(name) records the seconds since the previous part."""
+    from whisper_tpu_torch.parallel import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.load_library()
     dims = dataclasses.replace(MODEL_DIMS["turbo"], n_audio_layer=MESH_ENCODER_LAYERS)
     model = Whisper(dims, None, device=DEV, compute_dtype=torch.float32, seed=0)
-    meshes = {k: make_mesh(**{k[:2]: 2}) for k in ("dp2", "tp2", "sp2", "pp2")}
-    mel = two_windows(model, audio)
+    meshes = {k: make_mesh(**{k[:2]: 2}) for k in axes}
     out, counts, seconds = {"backend": torch.distributed.get_backend()}, {}, {}
     clock = [time.perf_counter()]
 
@@ -3920,40 +4056,38 @@ def mesh_world2(audio, jfk):
         seconds[name] = now - clock[0]
         clock[0] = now
 
-    for beam in (None, 5):
-        what = "beam5" if beam else "greedy"
-        (args, kw), _ = engine_call(model, mel, DecodingOptions(language="en", temperature=0.0, beam_size=beam))
-        plain_engine = FusedEngine(model)
-        want = plain_engine.run(*args, **kw)
-        out[f"{what}_plain_ms_per_token"] = engine_ms(plain_engine)
-        for name in ("dp2", "tp2"):
-            engine = DataParallelEngine(model, meshes[name])
-            reset_launch_counts()
-            got = engine.run(*args, **kw)
-            torch.cuda.synchronize()
-            add_counts(counts, launch_counts())
-            n = want[1]
-            same = got[1] == n and np.array_equal(got[0][:, :n], want[0][:, :n])
-            if beam:
-                same = same and np.array_equal(got[4], want[4]) and np.array_equal(got[7], want[7])
-            if not same:
-                raise AssertionError(f"(b) {name} {what}: the engine's tokens differ from the plain engine's")
-            out[f"{what}_{name}_ms_per_token"] = engine_ms(engine)
-            part(f"{what}_{name}")
-        if not beam:
-            draft = spec_draft(torch.float32)
-            dck, dcv = draft.cross_kv(draft.encode(mel))
-            spec = DataParallelSpeculativeEngine(model, draft, meshes["dp2"], k=4)
-            reset_launch_counts()
-            got = spec.run(*args, dck, dcv, **kw)
-            torch.cuda.synchronize()
-            add_counts(counts, launch_counts())
-            n = want[1]
-            if got[1] != n or not np.array_equal(got[0][:, :n], want[0][:, :n]):
-                raise AssertionError("(b) dp2 speculative: tokens differ from plain greedy's")
-            stats = spec.last_stats
-            out["spec_dp2_tokens_per_round"] = sum(stats["emitted"]) / max(sum(stats["rounds"]), 1)
-            part("spec_dp2")
+    return model, meshes, out, counts, seconds, part
+
+
+def mesh_world2(audio, jfk):
+    """(b), in each rank of a world of two sharing the card over gloo: the
+    turbo-width model with its encoder cut to MESH_ENCODER_LAYERS layers,
+    float32 with TF32 off (seed 0). DataParallelEngine at dp = 2 and at tp
+    = 2 on two windows, greedy and beam 5, against the plain engine on the
+    same engine arguments (mesh_engine_parts): equal tokens, step count and
+    beam pools, the loop body run uncaptured (gloo: no capture, no replay);
+    the speculative engine at dp = 2 with the 5g draft (float32): plain
+    greedy's tokens; sp_encode at sp = 2 and pp_encode at pp = 2 against
+    encode (max abs error, within 1e-3); 2 fine-tune steps at tp = 2
+    against single-device ones (rtol 1e-4) and the gathered tree's largest
+    difference from the single-device one; transcribe(jfk,
+    word_timestamps=True) at tp = 2 against the plain model: equal words
+    and times; the host ms of one gloo all-reduce over the tp group of a
+    decode step's activation and of a training one. Every rank runs every
+    part, so each plain run shares the card with the other rank's. The
+    speculative engine runs at dp = 2: at tp = 2 its ~1,000 draft passes
+    would each pay the gloo all-reduces (the CPU tests hold it at tp = 2).
+    Returns the mesh runs' launches, their passes (which the ranks must
+    share), ms per token and each part's seconds."""
+    from whisper_tpu_torch.finetune import batches, model_tokenizer
+    from whisper_tpu_torch.parallel import pp_encode, shard_params, sp_encode
+    from whisper_tpu_torch.parallel.sharding import gather_params
+    from whisper_tpu_torch.parallel.train import make_train_step
+
+    model, meshes, out, counts, seconds, part = world2_setup(("dp2", "tp2", "sp2", "pp2"))
+    mel = two_windows(model, audio)
+    engines = {k: meshes[k] for k in ("dp2", "tp2")}
+    mesh_engine_parts(model, engines, mel, False, (None, 5), counts, out, part, spec_draft_dtype=torch.float32)
 
     xa = model.encode(mel)
     for name, build_fn in (("sp2", sp_encode), ("pp2", pp_encode)):
@@ -4011,12 +4145,37 @@ def mesh_world2(audio, jfk):
     return out
 
 
+def mesh_world2_nccl(audio):
+    """(c), in each rank of a world of two over NCCL, one card a rank (only
+    where the machine has two cards or more): the model of (b) (turbo
+    width, encoder cut, float32, TF32 off); DataParallelEngine at dp = 2
+    and tp = 2, greedy on two windows, its loop body captured with the
+    collectives inside (the tp all-reduces, the done count's all-reduce
+    over dp) and replayed: tokens and step count equal to the plain
+    engine's (mesh_engine_parts)."""
+    model, meshes, out, counts, seconds, part = world2_setup(("dp2", "tp2"))
+    mesh_engine_parts(model, meshes, two_windows(model, audio), True, (None,), counts, out, part)
+    out.update(launches=counts, seconds=seconds)
+    return out
+
+
+def same_passes(ranks, what):
+    """Every rank ran the same loop passes in every part (rank lockstep:
+    each pass issues the same collectives)."""
+    passes = [r["passes"] for r in ranks]
+    if any(p != passes[0] for p in passes[1:]):
+        raise AssertionError(f"{what}: the ranks ran different passes: {passes}")
+
+
 def parallel_phase(audio, jfk, card):
-    """The mesh on the card (parallel/): (a) a world of one over NCCL,
-    (b) two ranks sharing the card over gloo (mesh_world1, mesh_world2),
-    each spawned from here after the kernels are built. A failed rank
-    fails the phase. Returns the launches of the mesh runs, summed over
-    the ranks."""
+    """The mesh on the card (parallel/): (a) a world of one over NCCL, its
+    engines' loop bodies captured, and (a') the NCCL capture probe; (b) two
+    ranks sharing the card over gloo, the bodies run uncaptured; (c) a
+    world of two over NCCL, one card a rank, where the machine has two
+    cards (else a line saying it did not run). Each is spawned from here
+    after the kernels are built (mesh_world1, mesh_world2,
+    mesh_world2_nccl); a failed rank fails the phase. Returns the launches
+    of the mesh runs, summed over the ranks."""
     from whisper_tpu_torch.parallel.launch import spawn
 
     torch.cuda.synchronize()
@@ -4025,19 +4184,36 @@ def parallel_phase(audio, jfk, card):
     t = time.perf_counter()
     (a,) = spawn(mesh_world1, 1, audio, device_type="cuda", timeout=600)
     add_counts(counts, a["launches"])
-    log(json.dumps({"phase": "parallel_world1_nccl", **a, "seconds": time.perf_counter() - t, "card": card}))
+    a["seconds_world1"] = time.perf_counter() - t
+    log(json.dumps({"phase": "parallel_world1_nccl", **a, "card": card}))
     t = time.perf_counter()
     b = spawn(mesh_world2, 2, audio, jfk, device_type="cuda", backend="gloo", timeout=600)
+    same_passes(b, "(b)")
     for rank, r in enumerate(b):
         add_counts(counts, r["launches"])
         log(json.dumps({"phase": "parallel_world2_gloo", "rank": rank, **r, "card": card}))
-    log(json.dumps({"phase": "parallel", "seconds_world2": time.perf_counter() - t, "launches": counts}))
-    # the mesh's engines keep the eager host loop: scalar and per-row
-    # launches, no loop-state launch
-    state = ("greedy_argmax_state", "beam_update_state", "greedy_argmax_rows_state")
-    missing = [k for k, n in counts.items() if n == 0 and k not in state]
-    if missing or any(counts[k] for k in state):
-        raise AssertionError(f"the mesh runs launched {missing} no time, or a loop-state launch: {counts}")
+    log(json.dumps({"phase": "parallel_world2_gloo", "seconds_world2": time.perf_counter() - t}))
+    t = time.perf_counter()
+    if torch.cuda.device_count() >= 2:
+        c = spawn(mesh_world2_nccl, 2, audio, device_type="cuda", timeout=600)
+        same_passes(c, "(c)")
+        for rank, r in enumerate(c):
+            add_counts(counts, r["launches"])
+            log(json.dumps({"phase": "parallel_world2_nccl", "rank": rank, **r, "card": card}))
+        log(json.dumps({"phase": "parallel_world2_nccl", "seconds_world2_nccl": time.perf_counter() - t}))
+    else:
+        log(json.dumps({
+            "phase": "parallel_world2_nccl", "ran": False, "cards": torch.cuda.device_count(),
+            "why": "NCCL takes one rank a card and this machine has one: captured collectives "
+                   "between ranks are not checked here ((a') captures them at world 1)",
+        }))  # fmt: skip
+    log(json.dumps({"phase": "parallel", "launches": counts}))
+    # the mesh's engines run the loop programs: a scalar launch at step 0,
+    # then loop-state launches; no per-row launch without the loop state
+    # (the host loop's, which no engine runs on its main path)
+    missing = [k for k, n in counts.items() if n == 0 and k != "greedy_argmax_rows"]
+    if missing or counts["greedy_argmax_rows"]:
+        raise AssertionError(f"the mesh runs launched {missing} no time, or a host loop's launch: {counts}")
     return counts
 
 
@@ -4782,7 +4958,8 @@ def run_phases():
         n == 0 for k, n in serving.items() if k not in speculative
     ):
         raise AssertionError(f"streaming and serving launched a kernel no time: {serving}, 5e {batcher_counts}")
-    # the per-row launch without the loop state is the mesh's (parallel phase)
+    # the per-row launch without the loop state is the host loop's, which
+    # no engine runs on its main path (5g's eager brackets compare with it)
     for name, n in launches.items():
         if n == 0 and name != "greedy_argmax_rows":
             raise AssertionError(f"the main path never launched {name}")
@@ -4814,7 +4991,7 @@ def run_phases():
     add_counts(launches, export_runtime_phase(model, jfk, card))
     clock("export_runtime")
     for name in kernels:
-        if not launches.get(name):
+        if not launches.get(name) and name != "greedy_argmax_rows":
             raise AssertionError(f"the smoke's runs never launched {name}: {launches}")
 
     source = {

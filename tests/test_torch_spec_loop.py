@@ -13,7 +13,7 @@ fused_decode_spec and its two while_loops).
     scalars on the device equals the host-int per-row form, and at
     live = 0 writes nothing;
 (d) decode_chunk at the program's fixed window against the host width;
-(e) the mesh's eager loop (`_run_eager`) against the body.
+(e) the host loop (`_run_eager`, a comparison variant) against the body.
 
 Tolerances, those of tests/test_torch_speculative.py: tokens and
 `last_stats` equal, sum_logprobs 2e-3, no_speech 1e-5; (b) and (c) bit for
@@ -348,13 +348,14 @@ def test_decode_chunk_fixed_window_matches_host_width(torch_model, mels, K):
     assert torch.equal(fixed[:, :, ~written], cache[:, :, ~written])  # row 2 and every other slot
 
 
-# ---- (e) the mesh's eager loop ----------------------------------------------------
+# ---- (e) the host loop ----------------------------------------------------------
 
 
 @pytest.mark.parametrize("which", ["random", "self"])
 def test_eager_loop_matches_body(torch_model, drafts, mels, tok, which):
-    """The host loop that the mesh's engine keeps (eager_loop), on one
-    device: the body's tokens, sums, statistics and loop counts."""
+    """The host loop (eager_loop, a comparison variant that no engine runs
+    on its main path), on one device: the body's tokens, sums, statistics
+    and loop counts."""
     draft = torch_model if which == "self" else drafts[1]
     (ck, cv), (dck, dcv) = _port_kv((torch_model, draft), mels)
     initial = _early_prompts(tok)

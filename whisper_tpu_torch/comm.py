@@ -24,6 +24,11 @@ The hand-off is an all-gather over the pipeline group rather than send and
 recv, so that it runs on every backend, gloo with CUDA tensors included
 (several ranks sharing one card, where NCCL refuses). Under inference_mode
 the Functions run their forwards.
+
+The decode loops capture these collectives in CUDA graphs where they can:
+`capturable(groups)` is the rule the engines decide by before a run
+(NCCL, or a group of one); all_gather gathers into one buffer, as a
+capture needs.
 """
 
 from typing import Optional
@@ -51,13 +56,24 @@ def all_reduce(x, group: Group, op=dist.ReduceOp.SUM):
 
 
 def all_gather(x, group: Group, dim: int = 0):
-    """Every rank's x, concatenated along `dim` in rank order."""
+    """Every rank's x, concatenated along `dim` in rank order: one gather
+    into one output buffer (no per-rank allocations), which a CUDA graph
+    can capture over NCCL."""
     n = group_size(group)
     if n == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    # the name every supported torch has (from 2.13 an alias of all_gather_single)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if dim == 0 else torch.cat(out.chunk(n, dim=0), dim=dim)
+
+
+def capturable(groups) -> bool:
+    """Whether a CUDA graph can capture the collectives over `groups`:
+    each is NCCL or has one rank (None included). Gloo runs its
+    collectives on host threads, which a capture cannot record."""
+    return all(group_size(g) == 1 or dist.get_backend(g) == "nccl" for g in groups)
 
 
 def local_slice(x, group: Group, dim: int):

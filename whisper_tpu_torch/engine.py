@@ -32,14 +32,31 @@ body the card captures); `capture = False` runs it eagerly on the card
 too. A capture or a replay
 that fails raises: nothing falls back to the uncaptured body.
 
+On a mesh (parallel/serve.py) the body carries the mesh's collectives: the
+tp / sp reductions of the step, the done flag's not-done count all-reduced
+over dp (`_live`), and at T > 0 the draw's gather over dp. Whether a run
+captures is decided before it starts, from the groups' backends
+(comm.capturable): it captures when every group the body uses is NCCL or
+has one rank; over gloo, whose collectives run on host threads, the body
+runs uncaptured on the card. `EngineRun.captured` records which. Every
+rank must issue the same collectives in the same order, so every rank
+runs the same passes: the host stops on n (the same on every rank) and on
+the whole batch's done flag, the same on every rank, read DONE_LAG passes
+late; the program keys, captures and evictions follow the same calls. A
+rank whose rows are all done keeps stepping (live writes nothing) until
+every row of the batch is done, as the JAX while_loop's cond runs over
+the sharded batch.
+
 `FusedEngine(model, weights="int8")` decodes with weight-only int8 (quant.py):
 the engine quantizes the model's decoder once, on first use, and keeps the
 quantized tree; each run quantizes the window's cross-K/V before the
 prefill. The model's own parameters are left as they are. `model_engine`
 gives a model's cached engine, one quantized tree per model and mode: a
-parallel.serve.DataParallelEngine when the model has a mesh (set_mesh),
-which keeps an eager host loop (`_run_eager`: its steps carry the mesh's
-collectives, and a host read of `completed` each step).
+parallel.serve.DataParallelEngine when the model has a mesh (set_mesh).
+
+The host loop (`_run_eager`, `eager_loop = True`: `graphs.decode_step`,
+the kernels' scalar launches and a host read of the done flag each step)
+stays as a comparison variant; no engine runs it on its main path.
 """
 
 import collections
@@ -50,6 +67,7 @@ import numpy as np
 import torch
 
 from . import profiling, quant
+from .comm import all_gather, all_reduce, capturable, group_size, local_slice
 from .models import graphs
 from .ops.beam_kernel import (
     LIVE, N_TOKENS, SAMPLE_BEGIN, STATE_LEN, apply_filters, beam_update, beam_update_state,
@@ -73,14 +91,16 @@ class EngineRun(NamedTuple):
     temperature: float
     steps: int  # tokens decoded per row (step 0 included)
     seconds: float  # host wall of the run, the final read included
-    loop: str = "program"  # "program" (the loop body) or "eager" (the mesh's host loop)
+    loop: str = "program"  # "program" (the loop body) or "eager" (the host loop, eager_loop)
     replays: int = 0  # replays of a captured body
     bodies: int = 0  # uncaptured body passes: the CPU, capture off, capture warm-ups
     captures: int = 0
     capture_s: float = 0.0
     done_reads: int = 0  # host reads of the done flag
     program: tuple = ()  # the static buffers' key (audios, group, pool size, last window)
+    groups: tuple = ()  # the sizes of the groups the body reduces over (tp, sp, dp), in the key
     recaptures: int = 0  # captures of a graph this engine had made before (its buffers dropped)
+    captured: bool = False  # the body replayed from graphs (decided before the run), else run uncaptured
 
 
 def _last_window(n_initial: int, sample_len: int) -> int:
@@ -109,10 +129,11 @@ class _Program:
     graphs by (mode, window, filters). A graph replays at the buffers'
     addresses, so every run of the key copies its inputs in."""
 
-    def __init__(self, model, dec, A, G, MC, last_window, ck, cv):
+    def __init__(self, model, dec, A, G, MC, last_window, ck, cv, d):
+        """A: this rank's audios; d: the cache's width, the model's d / tp."""
         dev = model.device
         B = A * G
-        L, d, V = model.dims.n_text_layer, model.dims.n_text_state, model.dims.n_vocab
+        L, V = model.dims.n_text_layer, model.dims.n_vocab
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
         self.dec = dec  # the tree the graphs read: kept alive with them
@@ -180,11 +201,13 @@ class FusedEngine:
     last suppression sets on the device, and the loop's static buffers and
     graphs of the latest MAX_PROGRAMS keys."""
 
-    # the process groups the graphs reduce over (parallel/serve.py sets
-    # them): tensor parallel over heads, the frame split of the cross-K/V
+    # the process groups the loop reduces over (parallel/serve.py sets
+    # them): tensor parallel over heads, the frame split of the cross-K/V,
+    # the batch split (the done flag and the draw)
     _tp = None
     _sp = None
-    eager_loop = False  # the mesh's engine keeps the host loop
+    _dp = None
+    eager_loop = False  # True: the host loop (_run_eager), a comparison variant
     capture = True  # on CUDA, replay the captured body (False: run it eagerly)
 
     def __init__(self, model, weights: str = ""):
@@ -217,17 +240,27 @@ class FusedEngine:
             self._dec_params = quant.quantize_decoder(dec) if self.weights == "int8" else dec
         return self._dec_params
 
+    def _live(self, done):
+        """int32 (1,) on the device: 1 while some row of the whole batch is
+        not done. The not-done count is all-reduced over dp on the device,
+        so every rank holds the same flag."""
+        left = (~done).sum(dtype=torch.int32).reshape(1)
+        return (all_reduce(left, self._dp) > 0).to(torch.int32)
+
     def _all_done(self, done) -> bool:
-        """Whether the eager loop may stop: every row is done (the per-step
+        """Whether the host loop may stop: every row is done (its per-step
         host read)."""
-        return bool(done.all())
+        return not int(self._live(done))
 
     def _draw(self, probs, gen):
         """One sampled token id per row of `probs` (B, V): torch.multinomial's
         draw of one sample (argmax of probs over Exp(1) noise from `gen`),
-        without its host-side checks, so that a graph can capture it."""
+        without its host-side checks, so that a graph can capture it. Over
+        dp, the whole batch's draw (probs all-gathered) with the shared
+        generator, then this rank's rows: the single-device engine's draws."""
+        probs = all_gather(probs, self._dp)
         q = torch.empty_like(probs).exponential_(1, generator=gen)
-        return (probs / q).argmax(dim=-1)
+        return local_slice((probs / q).argmax(dim=-1), self._dp, 0)
 
     @profiling.timed("fused_decode")
     @torch.inference_mode()
@@ -316,14 +349,18 @@ class FusedEngine:
 
     # ---- the loop as a program ---------------------------------------------
 
-    def _program(self, dec, A, G, MC, last_window, ck, cv):
+    def _program(self, dec, A, G, MC, last_window, ck, cv, sizes):
         """The static buffers of this key (least recently used dropped past
-        MAX_PROGRAMS, with their graphs)."""
+        MAX_PROGRAMS, with their graphs). `sizes`, of the groups the body
+        reduces over, is in the key: a graph bakes in its collectives, so a
+        run that splits its batch over dp never replays a graph captured by
+        one that did not (or the reverse) at the same local shapes."""
         layout = tuple((t.shape, t.dtype) for t in (ck if isinstance(ck, tuple) else (ck,)))
-        key = (A, G, MC, last_window, layout, id(dec))
+        key = (A, G, MC, last_window, layout, sizes, id(dec))
         p = self._programs.pop(key, None)
         if p is None:
-            p = _Program(self.model, dec, A, G, MC, last_window, ck, cv)
+            d = self.model.dims.n_text_state // group_size(self._tp)
+            p = _Program(self.model, dec, A, G, MC, last_window, ck, cv, d)
         self._programs[key] = p
         while len(self._programs) > MAX_PROGRAMS:
             self._programs.popitem(last=False)
@@ -337,14 +374,15 @@ class FusedEngine:
         last = p.tokens.gather(1, pos.long().expand(B)[:, None])[:, 0]
         logits, _ = graphs.decode_step_fixed(
             p.dec, last, pos, p.cache, p.src if beam else None, p.ck, p.cv,
-            n_head=self.model.dims.n_text_head, window=W,
+            n_head=self.model.dims.n_text_head, window=W, tp=self._tp, sp=self._sp,
         )  # fmt: skip
         return logits
 
     def _update(self, p, logits, mode, filt, first_n=None):
         """The update on `logits`, the token write, the loop state's advance
-        and the done flag. first_n: step 0's n_tokens, a host int (the
-        kernels' scalar launches); None: the loop state's launches."""
+        and the done flag (the whole batch's, `_live`). first_n: step 0's
+        n_tokens, a host int (the kernels' scalar launches); None: the loop
+        state's launches."""
         st = p.state
         live = st[LIVE : LIVE + 1] != 0
         pens = (p.suppress, p.begin)
@@ -380,7 +418,7 @@ class FusedEngine:
             done = self._greedy_tail(p, tok, lp, live, filt["eot"])
         # one more token where live; live stays while some row is not done
         st.add_(p.advance * st[LIVE])
-        st[LIVE : LIVE + 1].mul_((~done.all()).to(torch.int32))
+        st[LIVE : LIVE + 1].mul_(self._live(done))
         p.live_host.copy_(st[LIVE : LIVE + 1], non_blocking=True)
 
     @staticmethod
@@ -431,17 +469,21 @@ class FusedEngine:
                      n_initial, sample_len, temperature, rng_seed):  # fmt: skip
         """Step 0 eagerly, then the body once per token: replayed from its
         graph on CUDA (captured at a key's first use), run eagerly on the
-        CPU or with `capture` off."""
+        CPU, with `capture` off, or where a group the body reduces over
+        cannot be captured (gloo)."""
         A = first.shape[0]
         n_ctx = graphs.CACHE_SLOTS
         last_window = _last_window(n_initial, sample_len)
-        key, p = self._program(dec, A, G, MC, last_window, ck, cv)
+        groups = (self._tp, self._sp, self._dp)
+        sizes = tuple(group_size(g) for g in groups)
+        key, p = self._program(dec, A, G, MC, last_window, ck, cv, sizes)
         p.start(first[:, :n_initial], G, kv, n_initial, ck, cv, *pens, temperature, rng_seed)
         self._update(p, logits, mode, filt, first_n=n_initial)
 
-        on_card = p.state.is_cuda
-        capture = on_card and self.capture
-        rec = dict(replays=0, bodies=0, captures=0, capture_s=0.0, done_reads=0, recaptures=0)
+        # decided before the run, from the groups' backends
+        capture = p.state.is_cuda and self.capture and capturable(groups)
+        rec = dict(replays=0, bodies=0, captures=0, capture_s=0.0, done_reads=0, recaptures=0,
+                   captured=capture)  # fmt: skip
         n, step = n_initial + 1, 1
         pending = collections.deque()  # the passes whose done flag is unread
         for W in (w for w in PHASES if w <= last_window):
@@ -485,7 +527,7 @@ class FusedEngine:
         host = (p.tokens, p.sum_lp, p.pool_tokens, p.pool_scores, p.pool_lengths, p.pool_count)
         tokens, sum_lp, *pools = (t.to("cpu", copy=True).numpy() for t in host)
         return (tokens, n_final, sum_lp, *pools), dict(
-            rec, steps=n_final - n_initial, program=(A, G, MC, last_window)
+            rec, steps=n_final - n_initial, program=(A, G, MC, last_window), groups=sizes
         )
 
     @staticmethod
@@ -508,13 +550,14 @@ class FusedEngine:
             return None
         return not pending.popleft()
 
-    # ---- the eager host loop (the mesh's engine) -----------------------------
+    # ---- the host loop (a comparison variant, eager_loop) ---------------------
 
     def _run_eager(self, dec, first, kv, logits, ck, cv, pens, filt, mode, G, MC,
                    n_initial, sample_len, temperature, rng_seed):  # fmt: skip
         """One host iteration per token: `graphs.decode_step` (with the
         mesh's collectives), the kernels' scalar launches, a host read of
-        `completed` each step (`_all_done`)."""
+        `completed` each step (`_all_done`). No engine runs it on its main
+        path: the smoke and the tests hold the loop body against it."""
         model = self.model
         dev = model.device
         n_ctx = graphs.CACHE_SLOTS

@@ -467,7 +467,7 @@ def decode_step(dec, tokens, pos, cache, src, ck, cv, *, n_head, tp=None, sp=Non
     return hidden_to_logits(dec, x[:, 0]), cache
 
 
-def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=None):
+def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=None, tp=None, sp=None):
     """`decode_step` at fixed shapes, the form the exported step graphs and
     the captured decode loop take (whisper_tpu/models/graphs.py decode_step):
     nothing in it reads the device from the host.
@@ -482,16 +482,18 @@ def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=No
     ck/cv:  (L, Bc, H, dh, 1500) or int8 pairs, B % Bc == 0
     window: W, the cache slots the step reads, masks and reorders (the
             loop's bucketed phases: 128, 256, 448); None reads all C
+    tp, sp: process groups, as in `prefill` (the cache holds d / tp)
 
     Returns (logits (B, n_vocab) f32, cache)."""
-    C, d = cache.shape[3], cache.shape[4]
+    C = cache.shape[3]
     W = C if window is None else window
     view = cache if W == C else cache[:, :, :, :W]
     if src is not None:
         view.copy_(view.index_select(2, src.long()))
     blocks = dec["blocks"]
     B = tokens.shape[0]
-    dh = d // n_head
+    dh = dec["tok_emb"].shape[1] // n_head
+    n_head //= group_size(tp)
     slot = pos.long().reshape(1)
     x = tok_embedding(dec, tokens, blocks["attn_q_b"].dtype) + dec["pos_emb"].index_select(0, slot)
     x = x[:, None, :]  # (B, 1, d)
@@ -501,7 +503,7 @@ def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=No
 
     for l in range(blocks["attn_q_w"].shape[0]):
         blk = _layer(dec, l)
-        h = layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5)
+        h = copy_to_group(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"], 1e-5), tp)
         q = _dot(h, blk, "attn_q_w") + blk["attn_q_b"]
         new = torch.stack([_dot(h, blk, "attn_k_w"), _dot(h, blk, "attn_v_w") + blk["attn_v_b"]])
         cache[l].index_copy_(2, slot, new.to(cache.dtype))  # (2, B, 1, d) into slot pos
@@ -509,9 +511,9 @@ def decode_step_fixed(dec, tokens, pos, cache, src, ck, cv, *, n_head, window=No
         vals = view[l, 1].view(B, W, n_head, dh).transpose(1, 2)
         qh = (q * (dh**-0.5)).view(B, 1, n_head, dh).transpose(1, 2)  # (B, H, 1, dh)
         w = _softmax_f32(matmul_f32(qh, keys.transpose(-1, -2)) + kmask, x.dtype)
-        x = _self_attn_out(x, blk, _merge_heads(w @ vals), None)
-        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head)
-        x = x + _mlp(x, blk)
+        x = _self_attn_out(x, blk, _merge_heads(w @ vals), tp)
+        x = x + _cross_attention(x, blk, ckv_layer(ck, l), ckv_layer(cv, l), n_head, tp=tp, sp=sp)
+        x = x + _mlp(x, blk, tp)
     x = layer_norm(x, dec["ln_g"], dec["ln_b"], 1e-5)
     return hidden_to_logits(dec, x[:, 0]), cache
 

@@ -15,17 +15,35 @@ same full outputs. Inside a call:
 
 The logits are replicated over tp and sp (the token embedding is), so
 every rank of a dp group launches the same update kernel on the same
-logits and takes the same tokens. The engine's loop stops when every row of
-the whole batch is done: the per-step `completed` read is all-reduced over
-dp (one int per step), so every rank runs the single-device engine's number
-of steps, and a finished row evolves as it would there. The outputs are
-all-gathered over dp at the end. Sampling at T > 0 all-gathers each step's
-probabilities over dp and draws for the whole batch with the shared
-generator, then keeps the rank's rows: the single-device engine's draws.
+logits and takes the same tokens. Both engines run the single-device
+engines' loop programs (engine.py, speculative.py) on the rank's shard,
+with the collectives inside the body, as the JAX package's mesh engines
+run one jitted program with GSPMD's collectives in it:
 
-The speculative engine's dp groups run their rounds independently (a row's
-tokens do not depend on the other rows); the outputs are gathered and
-padded to the longest row of the batch at the end.
+  * the loop body's done flag is the whole batch's: the not-done count is
+    all-reduced over dp on the device inside the body (FusedEngine._live),
+    so every rank runs the single-device engine's number of steps, a rank
+    whose rows are done keeps stepping (writing nothing) until every row is
+    done, and a finished row evolves as it would there;
+  * sampling at T > 0 all-gathers each step's probabilities over dp inside
+    the body and draws for the whole batch with the shared generator (the
+    graph registers it), then keeps the rank's rows: the single-device
+    engine's draws (FusedEngine._draw);
+  * the speculative engine's dp groups run their rounds independently (a
+    row's tokens do not depend on the other rows), each group on its own
+    rows' flag; the outputs are gathered and padded to the longest row of
+    the batch at the end.
+
+The outputs are all-gathered over dp after the loop.
+
+Capture: a run captures its body as a CUDA graph when every group the body
+uses is NCCL or has one rank (comm.capturable, decided before the run and
+recorded as `captured` in the run's EngineRun / SpecRun); over gloo the
+body runs uncaptured on the card. Every rank must issue the same
+collectives in the same order: the host stops on the step count and on the
+batch's flag, which are the same on every rank, so every rank runs the
+same passes, captures and program evictions. A rank that stopped early
+would leave the others waiting in their next collective.
 
 The encoder and the cross-K/V (dp_encode, dp_cross_kv) are computed
 sharded and all-gathered, so the decoding task, the word-timing replay and
@@ -44,7 +62,7 @@ import torch
 from ..engine import FusedEngine, model_engine
 from ..models import graphs
 from ..speculative import SpeculativeEngine
-from ..comm import all_gather, all_reduce, group_rank, group_size, local_slice
+from ..comm import all_gather, group_rank, group_size, local_slice
 from .mesh import axis_group, mesh_shape
 from .sharding import shard_params
 
@@ -86,13 +104,10 @@ class DataParallelEngine(FusedEngine):
     dh, T) on every rank and returns the single-device engine's nine
     outputs on every rank."""
 
-    eager_loop = True  # its steps carry the mesh's collectives: not captured
-
     def __init__(self, model, mesh, weights: str = ""):
         super().__init__(model, weights=weights)
         self.mesh = mesh
         self._tp = _head_group(mesh, model.dims.n_text_head)
-        self._dp = None  # the batch split of the current run
 
     def _decoder_params(self):
         """The engine's decoder tree (int8 quantized whole, then split)
@@ -101,18 +116,6 @@ class DataParallelEngine(FusedEngine):
             dec = super()._decoder_params()
             self._dec_params = dec if self._tp is None else shard_params(dec, self.mesh)
         return self._dec_params
-
-    def _all_done(self, done) -> bool:
-        if self._dp is None:  # every rank holds the whole batch
-            return super()._all_done(done)
-        left = (~done).sum().to(torch.int32).reshape(1)
-        return int(all_reduce(left, self._dp)) == 0
-
-    def _draw(self, probs, gen):
-        # the whole batch's draw with the shared generator, this rank's rows
-        if self._dp is None:
-            return super()._draw(probs, gen)
-        return local_slice(super()._draw(all_gather(probs, self._dp), gen), self._dp, 0)
 
     def run(self, initial_tokens, ck, cv, **kw):
         initial = np.asarray(initial_tokens, dtype=np.int32)
@@ -170,8 +173,6 @@ class DataParallelSpeculativeEngine(SpeculativeEngine):
     the audio batch over `dp`, both cross-K/V frame axes over `sp`. Takes
     the whole cross-K/V of both models and returns the single-device
     engine's outputs on every rank."""
-
-    eager_loop = True  # its steps carry the mesh's collectives: not captured
 
     def __init__(self, model, draft_model, mesh, k: int = 4, weights: str = ""):
         self.mesh = mesh

@@ -41,9 +41,19 @@ token a round). The CPU runs the same body eagerly (the port's parity
 tests run it); `capture = False` runs it eagerly on the card. A capture or
 a replay that fails raises: nothing falls back to another loop.
 
-The mesh's engine (parallel/serve.py) keeps the host loop (`_run_eager`,
-`eager_loop = True`): its steps carry the mesh's collectives, and it reads
-every row's n, draft position and done flag to the host each round.
+On a mesh (parallel/serve.py) the round carries the tp / sp collectives
+of both models' chunks (a draft whose heads tp does not divide stays
+replicated). Whether a run captures is decided before it starts
+(comm.capturable): when every group the round uses is NCCL or has one
+rank; over gloo the round runs uncaptured on the card. `SpecRun.captured`
+records which. The dp groups run their rounds independently, each on its
+own rows' flag; the ranks of one dp group see the same logits and the
+same flag, so they run the same passes and issue the same collectives.
+
+The host loop (`_run_eager`, `eager_loop = True`: each round reads every
+row's n, draft position and done flag to the host; the greedy kernel's
+per-row launch) stays as a comparison variant; no engine runs it on its
+main path.
 
 Greedy at temperature 0 only: the fallback ladder and beam search run on
 engine.FusedEngine. Profiler ranges (torch.profiler.record_function):
@@ -61,6 +71,7 @@ import torch
 from torch.profiler import record_function
 
 from . import profiling, quant
+from .comm import capturable, group_size
 from .engine import HISTORY_RUNS, MAX_PROGRAMS, PHASES, FusedEngine, _copy, _like, model_engine
 from .models import graphs
 from .ops import beam_kernel as bk
@@ -97,7 +108,7 @@ class SpecRun(NamedTuple):
     rounds: int  # verify passes with a live row (the JAX outer loop's rounds)
     steps: int  # tokens decoded (the longest row's)
     seconds: float  # host wall of the run, the final read included
-    loop: str = "program"  # "program" (the round body) or "eager" (the mesh's host loop)
+    loop: str = "program"  # "program" (the round body) or "eager" (the host loop, eager_loop)
     k: int = 4
     replays: int = 0  # replays of a captured body
     bodies: int = 0  # uncaptured body passes: the CPU, capture off, the capture's warm-up
@@ -105,7 +116,9 @@ class SpecRun(NamedTuple):
     capture_s: float = 0.0
     done_reads: int = 0  # host reads of the done flag
     program: tuple = ()  # the static buffers' key (audios, K, last window)
+    groups: tuple = ()  # the sizes of the groups the round reduces over (target tp, draft tp, sp)
     recaptures: int = 0  # captures of a graph this engine had made before (its buffers dropped)
+    captured: bool = False  # the round replayed from its graph (decided before the run), else uncaptured
 
 
 class _SpecProgram:
@@ -113,7 +126,9 @@ class _SpecProgram:
     and the body's graphs by filters. A graph replays at the buffers'
     addresses, so every run of the key copies its inputs in."""
 
-    def __init__(self, target, draft, dec_t, dec_d, A, K, last_window, ckv, dckv):
+    def __init__(self, target, draft, dec_t, dec_d, A, K, last_window, ckv, dckv, widths):
+        """A: this rank's audios; widths: each cache's width, its model's
+        d / tp (target, draft)."""
         dev = target.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -123,11 +138,8 @@ class _SpecProgram:
         self.K, self.window = K, last_window
         self.tokens = torch.zeros((A, graphs.CACHE_SLOTS), **i32)
         self.cache_t, self.cache_d = (
-            torch.zeros(
-                (m.dims.n_text_layer, 2, A, last_window, m.dims.n_text_state),
-                dtype=m.compute_dtype, device=dev,
-            )
-            for m in (target, draft)
+            torch.zeros((m.dims.n_text_layer, 2, A, last_window, d), dtype=m.compute_dtype, device=dev)
+            for m, d in zip((target, draft), widths)
         )  # fmt: skip
         self.n = torch.zeros(A, **i32)  # verified tokens per row
         self.p_d = torch.zeros(A, **i32)  # positions fed to the draft correctly
@@ -194,7 +206,7 @@ class SpeculativeEngine:
     kept."""
 
     _sp = None  # the frame split of both cross-K/V (parallel/serve.py)
-    eager_loop = False  # the mesh's engine keeps the host loop
+    eager_loop = False  # True: the host loop (_run_eager), a comparison variant
     capture = True  # on CUDA, replay the captured round (False: run it eagerly)
 
     def __init__(self, model, draft_model, k: int = 4, weights: str = ""):
@@ -344,17 +356,19 @@ class SpeculativeEngine:
 
     # ---- the round as a program ----------------------------------------------
 
-    def _program(self, A, last_window, ckv, dckv):
+    def _program(self, A, last_window, ckv, dckv, sizes):
         """The static buffers of this key (least recently used dropped past
-        MAX_PROGRAMS, with their graphs)."""
+        MAX_PROGRAMS, with their graphs); `sizes`, of the groups the round
+        reduces over, is in the key, as in FusedEngine._program."""
         dec_t, dec_d = self._target._decoder_params(), self._draft._decoder_params()
         layout = tuple(
             (t.shape, t.dtype) for x in (ckv[0], dckv[0]) for t in (x if isinstance(x, tuple) else (x,))
         )  # fmt: skip
-        key = (A, self.k, last_window, layout, id(dec_t), id(dec_d))
+        key = (A, self.k, last_window, layout, sizes, id(dec_t), id(dec_d))
         p = self._programs.pop(key, None)
         if p is None:
-            p = _SpecProgram(self.model, self.draft, dec_t, dec_d, A, self.k, last_window, ckv, dckv)
+            widths = [e.model.dims.n_text_state // group_size(e._tp) for e in (self._target, self._draft)]
+            p = _SpecProgram(self.model, self.draft, dec_t, dec_d, A, self.k, last_window, ckv, dckv, widths)
         self._programs[key] = p
         while len(self._programs) > MAX_PROGRAMS:
             self._programs.popitem(last=False)
@@ -378,7 +392,7 @@ class SpeculativeEngine:
             tok_in = p.tokens.gather(1, p.p_d.long()[:, None])  # (A, 1)
             logits, _ = graphs.decode_chunk(
                 p.dec_d, tok_in, p.p_d, p.cache_d, p.dck, p.dcv,
-                n_head=self.draft.dims.n_text_head, active=active, width=W,
+                n_head=self.draft.dims.n_text_head, active=active, width=W, tp=self._draft._tp, sp=self._sp,
             )  # fmt: skip
             write_pos = p.p_d + 1
             prop, _ = greedy_argmax_rows_state(
@@ -395,7 +409,7 @@ class SpeculativeEngine:
         t_in = p.tokens.gather(1, (n[:, None] - 1 + j).long())  # (A, K + 1)
         logits, _ = graphs.decode_chunk(
             p.dec_t, t_in, n - 1, p.cache_t, p.ck, p.cv, n_head=self.model.dims.n_text_head,
-            active=alive, width=W,
+            active=alive, width=W, tp=self._target._tp, sp=self._sp,
         )  # fmt: skip
         # one launch filters and picks all K + 1 positions of every row
         hist = p.tokens[:, None].expand(A, K + 1, n_ctx).reshape(A * (K + 1), n_ctx).contiguous()
@@ -422,13 +436,16 @@ class SpeculativeEngine:
     def _run_program(self, first, kv_t, kv_d, logits0, ckv, dckv, pens, filt, n_initial, sample_len):
         """Step 0 eagerly, then the round body once per verify round:
         replayed from its graph on CUDA (captured at a key's first use), run
-        eagerly on the CPU or with `capture` off. Returns (tokens (A, 448),
+        eagerly on the CPU, with `capture` off, or where a group the round
+        reduces over cannot be captured (gloo). Returns (tokens (A, 448),
         n (A,), sum_logprobs (A,), rounds (A,)) in numpy and the record."""
         A = first.shape[0]
         K = self.k
         max_slots = n_initial + sample_len + K + 1
         last_window = next(w for w in PHASES if max_slots <= w)
-        key, p = self._program(A, last_window, ckv, dckv)
+        groups = (self._target._tp, self._draft._tp, self._sp)
+        sizes = tuple(group_size(g) for g in groups)
+        key, p = self._program(A, last_window, ckv, dckv, sizes)
         on_card = p.state.is_cuda
         if on_card:
             counters = bk.state_counters(p.state.device)
@@ -437,13 +454,16 @@ class SpeculativeEngine:
         g0, lp0 = greedy_argmax(logits0, p.tokens, n_initial, n_initial, *pens, **filt)
         p.first_token(g0, lp0, n_initial, filt["eot"])
 
-        rec = dict(replays=0, bodies=0, captures=0, capture_s=0.0, done_reads=0, recaptures=0)
+        # decided before the run, from the groups' backends
+        capture = on_card and self.capture and capturable(groups)
+        rec = dict(replays=0, bodies=0, captures=0, capture_s=0.0, done_reads=0, recaptures=0,
+                   captured=capture)  # fmt: skip
 
         def body():
             self._round(p, filt)
 
         graph = None
-        if on_card and self.capture and sample_len > 1:
+        if capture and sample_len > 1:
             graph_key = tuple(sorted(filt.items()))
             if graph_key not in p.graphs:
                 t0 = time.perf_counter()
@@ -477,17 +497,19 @@ class SpeculativeEngine:
         launched = int(launched[0][0]) if launched else (K + 2) * passes
         return tokens, n_row, sum_lp, rounds, dict(
             rec, launches=1 + launched, draft_steps=int(counts[0]), rounds=int(counts[1]),
-            program=(A, K, last_window),
+            program=(A, K, last_window), groups=sizes,
         )  # fmt: skip
 
-    # ---- the eager host loop (the mesh's engine) -----------------------------
+    # ---- the host loop (a comparison variant, eager_loop) ---------------------
 
     def _run_eager(self, first, kv_t, kv_d, logits0, ckv, dckv, pens, filt, n_initial, sample_len):
         """The host loop: each round reads every row's n, draft position and
         done flag to the host, which decide the loop and size the round's
         cache slices; the greedy kernel's scalar launch at step 0 and its
         per-row launch at each draft step and verify pass (with the mesh's
-        collectives in the graphs). Returns _run_program's outputs."""
+        collectives in the graphs). No engine runs it on its main path: the
+        smoke and the tests hold the round body against it. Returns
+        _run_program's outputs."""
         dev = self.model.device
         n_ctx = graphs.CACHE_SLOTS
         K = self.k
