@@ -66,6 +66,27 @@ Phases (any failure raises and the script exits non-zero):
      noise, whose second round has two prompts, on the engine (one call per
      prompt) and on the host loop (use_fused_decode off): the same loops and
      equal tokens on the card and the CPU, and on both loops;
+  configs. the repo's published configurations (BASELINE.json): (a) the
+     update kernels at the English-only layout (V = 51864, EOT 50256,
+     timestamps from 50363, sample_begin 1): the greedy kernel's scalar,
+     loop-state, per-row and per-row loop-state launches at B = 1 and 5,
+     the beam kernel's scalar and loop-state launches at (A, G) = (1, 5)
+     and (4, 5), and at (4, 5) at large-v3's layout too, on randn logits,
+     EOT-heavy rows and chunk-edge ties, exact against the plain versions;
+     (b) an English-only model at tiny dims in float32 on the card and on
+     the CPU: greedy and beam-5 decode() tokens equal, transcribe(jfk,
+     language=None, word_timestamps=True) in English with equal words,
+     decode(language=None) raising on both; (c) configurations 1 (tiny.en
+     greedy on jfk), 2 (base, language detection and the ladder), 3 (small
+     at beam 5 / best_of 5 with the ladder) and 5 (large-v3, four streams
+     through transcribe_batch at beam 5) at full width through
+     whisper_tpu_torch.config_matrix, each model freed before the next:
+     each ok, no re-capture, its launches equal its engine's records and
+     its loop-state kernel launched, configuration 1 in English, 2 in a
+     language of LANGUAGES, 5 with four results each with segments; each
+     record (ms a token, wall s, captures, peak memory) logged with the
+     card line. Configuration 4 (turbo at beam 5 with word timestamps) is
+     phase 5's beam5_t0 and words_greedy_t0 runs, logged after them;
   4b. the decode loop as a captured program (engine.py): one turbo window
      at greedy T = 0, beam 5 and a T = 0.7 draw (seed 7) through the
      captured loop, the same body uncaptured and the eager host loop: the
@@ -148,8 +169,9 @@ Phases (any failure raises and the script exits non-zero):
      on the same inputs within 1e-4, the cross-attention output within
      1e-3; a prefill and a step's logits reported); the speculative
      engine (a tiny-class draft with turbo's vocabulary and mels, K = 4)
-     on one window, its round captured, uncaptured (the body run eagerly)
-     and the eager host loop, beside the plain captured engine, with a
+     on one window (cut to 128 tokens with the random draft), its round
+     captured, uncaptured (the body run eagerly) and the eager host loop,
+     beside the plain captured engine, with a
      random draft and with a one-token vocabulary (every draft accepted),
      in bf16 and at float32: rounds, acceptance, tokens per round, ms per
      token (plain and captured: the median of two runs after an untimed
@@ -1216,6 +1238,106 @@ def check_odd_vocab():
     return err
 
 
+# the English-only models' layout (the gpt2 encoding: tiny.en .. medium.en)
+# and large-v3's, as (V, EOT, first timestamp, no-timestamps, sample_begin)
+EN_LAYOUT = (51864, 50256, 50363, 50362, 1)
+V3_LAYOUT = (V, EOT, TS_BEGIN, NO_TS, SAMPLE_BEGIN)
+
+
+def layout_case(seed, layout, rows, n_tokens, G, mode, C, use_ts=True):
+    """Inputs of one update at `layout`: randn logits over its V (`eot`:
+    EOT lifted above the rest in every other row; `edge_ties`: equal maxima
+    on both sides of every chunk edge of C chunks), a history whose rows
+    end mid timestamp pair, with a pair just closed or in text (rows G
+    apart equal at n_tokens == sample_begin, as a beam's first step), the
+    penalty vectors and the kernels' keywords."""
+    Vx, eot, ts_begin, no_ts, sb = layout
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(100, 5000, size=(rows, T)).astype(np.int32)
+    if n_tokens > sb:
+        tokens[1 % rows, n_tokens - 1] = ts_begin + 30  # mid pair
+        tokens[2 % rows, n_tokens - 2 : n_tokens] = (ts_begin + 7, ts_begin + 12)  # pair closed
+    else:
+        tokens = np.repeat(tokens[::G], G, axis=0)
+    logits = rng.randn(rows, Vx).astype(np.float32)
+    if mode == "edge_ties":
+        n = -(-Vx // C)
+        n += n % 2
+        for e in range(n, Vx, n):
+            logits[:, [e - 1, e]] = 14.0
+    elif mode == "eot":
+        logits[::2, eot] = 20.0
+    sup, beg = bk.build_penalty_vectors(
+        Vx, [1, 2, 3, 11, 220], [220, eot], use_timestamps=use_ts, no_timestamps=no_ts,
+        timestamp_begin=ts_begin, max_initial_ts_index=50,
+    )  # fmt: skip
+    pens = (torch.from_numpy(sup).to(DEV), torch.from_numpy(beg).to(DEV))
+    kw = dict(use_timestamps=use_ts, eot=eot, timestamp_begin=ts_begin)
+    lg = torch.from_numpy(logits).to(DEV)
+    return lg, torch.from_numpy(tokens).to(DEV), pens, kw
+
+
+def check_layout_vocab():
+    """The update kernels at the English-only layout (V = 51864, EOT 50256,
+    timestamps from 50363, sample_begin 1: an even V, so the float2 build)
+    and, for the beam kernel at (A, G) = (4, 5), at large-v3's: the greedy
+    kernel's scalar, loop-state, per-row and per-row loop-state launches at
+    B = 1 and 5, the beam kernel's scalar and loop-state launches at
+    (A, G) = (1, 5) and (4, 5), at the first sampled position (the begin
+    vector) and past it, with and without timestamp rules, on randn logits,
+    EOT-heavy rows and equal maxima on both sides of every chunk edge; ids,
+    sources, tokens and pools exact against the plain versions, scores
+    within SCORE_TOL. Returns the largest score error and the launches
+    checked."""
+    err, n = 0.0, 0
+    for seed, (B, at, mode, use_ts) in enumerate([
+        (1, 0, "randn", True), (1, 11, "edge_ties", True), (1, 11, "randn", False),
+        (5, 0, "edge_ties", True), (5, 11, "randn", True), (5, 14, "eot", False),
+        (5, 9, "edge_ties", False),
+    ]):  # fmt: skip
+        sb = EN_LAYOUT[4]
+        C = bk.cluster_sizes(1, EN_LAYOUT[0])[0]
+        lg, tokens, (sup, beg), kw = layout_case(seed, EN_LAYOUT, B, sb + at, 1, mode, C, use_ts)
+        what = f"en layout greedy B={B}, n_tokens={sb + at}, {mode}, ts={use_ts}"
+        args = (lg, tokens, sb + at, sb, sup, beg)
+        err = max(err, same_greedy(args, kw, bk.greedy_argmax(*args, **kw), what))
+        err = max(err, same_greedy(args, kw, greedy_state_call(args, kw), "state " + what))
+        lengths = torch.tensor([sb + at + (r % 3) for r in range(B)], dtype=torch.int32, device=DEV)
+        rows = (lg, tokens, lengths, sb, sup, beg)
+        err = max(err, same_greedy(rows, kw, bk.greedy_argmax(*rows, **kw), "rows " + what))
+        err = max(err, same_greedy(rows, kw, rows_state_call(rows, kw), "rows state " + what))
+        n += 4
+    for seed, (layout, A, at, mode, use_ts) in enumerate([
+        (EN_LAYOUT, 1, 0, "randn", True), (EN_LAYOUT, 1, 11, "eot", True),
+        (EN_LAYOUT, 1, 9, "edge_ties", False), (EN_LAYOUT, 4, 0, "edge_ties", True),
+        (EN_LAYOUT, 4, 11, "eot", True), (EN_LAYOUT, 4, 12, "randn", False),
+        (EN_LAYOUT, 4, 14, "edge_ties", True), (V3_LAYOUT, 4, 0, "randn", True),
+        (V3_LAYOUT, 4, 11, "eot", True), (V3_LAYOUT, 4, 14, "edge_ties", False),
+    ], 20):  # fmt: skip
+        G, sb = 5, layout[4]
+        C = bk.cluster_sizes(G, layout[0])[1] // G
+        lg, tokens, pens, kw = layout_case(seed, layout, A * G, sb + at, G, mode, C, use_ts)
+        rng = np.random.RandomState(seed)
+        sum_lp = torch.from_numpy((rng.randn(A * G) * (at > 0)).astype(np.float32)).to(DEV)
+        pool = [
+            torch.zeros((A, 5, T + 1), dtype=torch.int32, device=DEV),
+            torch.full((A, 5), float("-inf"), device=DEV),
+            torch.zeros((A, 5), dtype=torch.int32, device=DEV),
+            torch.zeros((A,), dtype=torch.int32, device=DEV),
+        ]
+        case = ((lg, tokens, sum_lp), pool, (sb + at, sb, at, *pens), dict(kw, n_group=G))
+        what = f"V={layout[0]} beam A={A}, G={G}, n_tokens={sb + at}, {mode}, ts={use_ts}"
+        kpool = [p.clone() for p in pool]
+        k = bk.beam_update(*case[0], *kpool, *case[2], **case[3])
+        err = max(err, same_beam(case, k, kpool, what))
+        if mode == "eot" and int(kpool[3].sum()) == 0:
+            raise AssertionError(f"the EOT case put nothing into the pools ({what})")
+        kpool = [p.clone() for p in pool]
+        err = max(err, same_beam(case, beam_state_call(case, kpool), kpool, "state " + what))
+        n += 2
+    return dict(max_abs_err=err, launches_checked=n)
+
+
 # ---- phase 2b: the word-timing kernels vs plain versions -------------------
 
 
@@ -1555,6 +1677,118 @@ def card_vs_cpu():
         segments=[len(r["segments"]) for r in cres], max_time_diff_s=d,
     )  # fmt: skip
     return out
+
+
+def card_vs_cpu_en():
+    """The English-only layout at tiny dims (V = 51864, 80 mels), float32,
+    TF32 off, on the card (the captured loop) and on the CPU with the same
+    seeded weights: the task's sample_begin is 1; greedy and beam-5
+    decode() give equal tokens and avg_logprob within 1e-3; transcribe(jfk,
+    language=None, word_timestamps=True) transcribes English with equal
+    words, times within 1e-6 s; decode(language=None) raises on both."""
+    dims = ModelDimensions(80, 1500, 128, 2, 2, 51864, 448, 128, 2, 2)
+    params = tiny_params(dims, seed=13)
+    gpu = Whisper(dims, params, device="cuda", compute_dtype=torch.float32)
+    cpu = Whisper(dims, params, device="cpu", compute_dtype=torch.float32)
+    if gpu.is_multilingual or DecodingTask(gpu, DecodingOptions(language="en")).sample_begin != 1:
+        raise AssertionError("the English-only model is not laid out as the gpt2 encoding's")
+    mel = (np.random.RandomState(6).randn(80, 3000) * 0.6).astype(np.float32)
+    out = {}
+    for name, kw in [("greedy", {}), ("beam5", dict(beam_size=5))]:
+        opts = DecodingOptions(language="en", sample_len=40, **kw)
+        g, c = decode(gpu, mel, opts), decode(cpu, mel, opts)
+        if g.tokens != c.tokens or not g.tokens:
+            raise AssertionError(f"en {name}: card tokens {g.tokens} != CPU tokens {c.tokens}")
+        d = abs(g.avg_logprob - c.avg_logprob)
+        if not d < 1e-3:
+            raise AssertionError(f"en {name}: avg_logprob differs by {d}")
+        run = gpu._fused_engine.history[-1]
+        if not run.captured or run.replays == 0:
+            raise AssertionError(f"en {name}: the card's decode did not replay its captured loop: {run}")
+        out[name] = dict(tokens=len(g.tokens), avg_logprob_diff=d, replays=run.replays)
+    for model in (gpu, cpu):
+        try:
+            decode(model, mel, DecodingOptions(temperature=0.0, sample_len=5))
+        except ValueError as e:
+            if "can't perform lang id" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"decode(language=None) of an English-only model ran on {model.device}")
+    jfk = load_audio(JFK_PATH)
+    kw = dict(language=None, temperature=0.0, verbose=None, word_timestamps=True)
+    gr, cr = gpu.transcribe(jfk, **kw), cpu.transcribe(jfk, **kw)
+    if gr["language"] != "en" or cr["language"] != "en":
+        raise AssertionError(f"English-only transcribe: languages {gr['language']}, {cr['language']}")
+    gw, cw = words_of(gr), words_of(cr)
+    if not cw:
+        raise AssertionError("the English-only CPU run of jfk gave no words")
+    out["words"] = dict(words=len(gw), max_time_diff_s=same_words(gw, cw, "en jfk"))
+    return out
+
+
+CONFIG_RUNS = (1, 2, 3, 5)  # configuration 4 is turbo: the main path's beam5_t0 and words_greedy_t0
+CONFIG_KERNEL = {1: "greedy_argmax_state", 2: "greedy_argmax_state", 3: "beam_update_state",
+                 5: "beam_update_state"}  # fmt: skip
+
+
+def configs_phase(card):
+    """The repo's published configurations 1, 2, 3 and 5 at full width
+    through config_matrix.run_config (transcribe() or transcribe_batch on a
+    model with seeded random bf16 weights, freed before the next): each
+    must be ok, re-capture nothing, and launch the update kernels as its
+    engine's records say (engine_want; the counts set to 0 just before
+    it), its loop-state kernel at least once; configuration 1 transcribes
+    English, 2 detects a language of LANGUAGES, 5 returns four results
+    each with segments. Logs each record (ms a token, wall s, captures,
+    peak memory) with the card line; returns the launches summed."""
+    from whisper_tpu_torch import config_matrix
+    from whisper_tpu_torch.tokenizer import LANGUAGES
+
+    total = {}
+    t_phase = time.perf_counter()
+    for n in CONFIG_RUNS:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        record, runs = config_matrix.run_config(n, "cuda")
+        counts = launch_counts()
+        log(json.dumps({"phase": "configs", **record, "launches": counts, "card": card}))
+        if not record["ok"]:
+            raise AssertionError(f"configuration {n} failed: {record['error']}")
+        want = engine_want(runs)
+        if counts != want:
+            raise AssertionError(f"configuration {n}: launches {counts} != its engine's records {want}")
+        if not counts[CONFIG_KERNEL[n]]:
+            raise AssertionError(f"configuration {n} never launched {CONFIG_KERNEL[n]}: {counts}")
+        if record["recaptures"]:
+            raise AssertionError(f"configuration {n} re-captured {record['recaptures']} graphs")
+        if not all(r.captured for r in runs):
+            raise AssertionError(f"configuration {n} ran a loop uncaptured on the card")
+        if n == 1 and record["language"] != "en":
+            raise AssertionError(f"configuration 1 transcribed {record['language']!r}")
+        if n == 2 and record["language"] not in LANGUAGES:
+            raise AssertionError(f"configuration 2 detected {record['language']!r}")
+        if n == 5 and (record["n_streams"] != 4 or not all(record["segments_per_stream"])):
+            raise AssertionError(f"configuration 5: {record['n_streams']} results, segments {record['segments_per_stream']}")
+        add_counts(total, counts)
+    log(json.dumps({"phase": "configs_seconds", "seconds": time.perf_counter() - t_phase}))
+    return total
+
+
+def turbo_config_record(stats, card):
+    """Configuration 4 (turbo at beam 5 with word timestamps) as the main
+    path ran it: the 60 s clip's beam5_t0 and words_greedy_t0 runs, which
+    must re-capture nothing."""
+    keys = ("wall_s", "windows_decoded", "decode_steps", "ms_per_token", "captures", "programs",
+            "segments", "windows_aligned")  # fmt: skip
+    record = {"phase": "configs", "config": 4, "name": "turbo beam5 word_timestamps", "ok": True,
+              "model": "turbo", "from": list(stats), "card": card}  # fmt: skip
+    for run, st in stats.items():
+        record[run] = {k: st[k] for k in keys if k in st}
+    log(json.dumps(record))
+    if sorted(stats) != ["beam5_t0", "words_greedy_t0"] or any(
+        st["programs"]["recaptures"] for st in stats.values()
+    ):
+        raise AssertionError(f"configuration 4's turbo runs: {record}")
 
 
 def words_of(result):
@@ -2779,6 +3013,11 @@ def timed(fn):
 
 
 SPEC_VARIANTS = ("captured", "body", "eager")
+# tokens of the random-draft brackets' window, whose uncaptured body and
+# eager loop take 23-43 ms a token; past 128 slots, so that spec_profile's
+# 24-token run (the 128-slot key) captures its own graph just before its
+# profile
+SPEC_RANDOM_LEN = 128
 
 
 def spec_engine(model, draft, k, variant):
@@ -2792,13 +3031,14 @@ def spec_engine(model, draft, k, variant):
     return spec
 
 
-def spec_bracket(model, draft, window, only_token=None, k=4, reps=2):
+def spec_bracket(model, draft, window, only_token=None, k=4, reps=2, sample_len=None):
     """The plain captured engine and the speculative engine (draft `draft`,
     K = k) on one greedy window at T = 0, its loop captured, uncaptured
     (the round body run eagerly) and the eager host loop. The plain engine
     and the captured round run once untimed (their graphs), then `reps`
     timed runs each; the uncaptured body and the eager loop, dispatch-bound,
-    one timed run each. With `only_token`, every other id is suppressed and
+    one timed run each; `sample_len` cuts the window (decode()'s default:
+    224 tokens). With `only_token`, every other id is suppressed and
     timestamps are off: every draft is accepted (the upper bracket); else
     the window decodes as transcribe() would (timestamps on). The counts
     are set to 0 just before each timed run and must equal its record
@@ -2808,7 +3048,9 @@ def spec_bracket(model, draft, window, only_token=None, k=4, reps=2):
     and a token, the host ms of a replay's call, and the share of that
     run's wall outside the graphs. Returns (stats, the captured engine's
     arguments)."""
-    opts = DecodingOptions(language="en", temperature=0.0, without_timestamps=only_token is not None)
+    opts = DecodingOptions(
+        language="en", temperature=0.0, without_timestamps=only_token is not None, sample_len=sample_len
+    )  # fmt: skip
     (args, kw), _ = engine_call(model, window, opts)
     if only_token is not None:
         kw = dict(kw, suppress_ids=[i for i in range(model.dims.n_vocab) if i != only_token],
@@ -3069,7 +3311,9 @@ def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
     f32_draft = spec_draft(torch.float32)
     window = first_window(model, audio)
     only = 1000  # a text id: every other id suppressed
-    for name, kw, profiled in [("random_draft", {}, 24), ("all_accepted", dict(only_token=only), 48)]:
+    for name, kw, profiled in [
+        ("random_draft", dict(sample_len=SPEC_RANDOM_LEN), 24), ("all_accepted", dict(only_token=only), 48),
+    ]:  # fmt: skip
         stats, run = spec_bracket(model, draft, window, **kw)
         prof = spec_profile(*run, sample_len=profiled)
         cap = stats["captured"]
@@ -4882,6 +5126,7 @@ def run_phases():
     }  # fmt: skip
     clock("kernels")
     log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
+    log(json.dumps({"phase": "layout_vocab", **check_layout_vocab()}))
     log(json.dumps({"phase": "f32_products", **f32_products()}))
     for name, r in kernels.items():
         log(json.dumps({"phase": "kernel", "name": name, **r, "card": card}))
@@ -4893,6 +5138,10 @@ def run_phases():
     clock("f32_products")
     log(json.dumps({"phase": "card_vs_cpu", **card_vs_cpu()}))
     clock("card_vs_cpu")
+    log(json.dumps({"phase": "card_vs_cpu_en", **card_vs_cpu_en()}))
+    clock("card_vs_cpu_en")
+    config_launches = configs_phase(card)
+    clock("configs")
 
     dims = MODEL_DIMS["turbo"]
     torch.cuda.reset_peak_memory_stats()
@@ -4909,7 +5158,8 @@ def run_phases():
     clock("done_lag")
     draft = spec_draft(torch.bfloat16)
 
-    launches = {}
+    launches = dict(config_launches)
+    turbo_config = {}
     np.random.seed(0)  # the sampling seeds of the temperature ladder
     words = dict(word_timestamps=True, temperature=0.0)
     silence = dict(words, hallucination_silence_threshold=2.0)
@@ -4926,6 +5176,9 @@ def run_phases():
             launches[k] = launches.get(k, 0) + v
         log(json.dumps({"phase": "main_path", "run": name, **stats, "launches": counts,
                         "card": card}))  # fmt: skip
+        if name in ("beam5_t0", "words_greedy_t0"):
+            turbo_config[name] = stats
+    turbo_config_record(turbo_config, card)
     clock("main_path")
     for k, v in batch_phase(model, audio, card).items():
         launches[k] = launches.get(k, 0) + v

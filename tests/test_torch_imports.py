@@ -50,6 +50,7 @@ def test_import_without_jax():
         "import whisper_tpu_torch.runtime.native, whisper_tpu_torch.runtime.build\n"
         "import whisper_tpu_torch.runtime_config\n"
         "import whisper_tpu_torch.profiling, whisper_tpu_torch.export_pipeline\n"
+        "import whisper_tpu_torch.config_matrix\n"
         "assert (set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()) == built\n"
         "assert whisper_tpu_torch.runtime.native._lib is None  # the audio library is not loaded\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"

@@ -94,3 +94,39 @@ def test_bfloat16_model_keeps_layernorm_f32(synth_checkpoint):
     assert dec["blocks"]["attn_ln_g"].dtype == torch.float32
     assert dec["ln_b"].dtype == torch.float32
     assert all(t.device.type == "cpu" for t in model.buffers())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_save_params_npz_is_read_by_jax(synth_checkpoint, tmp_path, dtype):
+    """The JAX `load_params_npz` reads the port's file leaf for leaf (a
+    bfloat16 tree is written as float32, its values exactly)."""
+    from whisper_tpu.models.params import load_params_npz as jax_load
+
+    model = whisper_tpu_torch.load_model(synth_checkpoint, device="cpu", compute_dtype=dtype)
+    path = str(tmp_path / "params.npz")
+    whisper_tpu_torch.save_params_npz(model.params, path)
+    back = jax_load(path)
+    _assert_trees_equal(model.params, back)
+    assert all(v.dtype == np.float32 for _, v in _flat(back))
+
+
+def test_load_params_npz_reads_jax_save(tpu_model, tmp_path):
+    """The port's `load_params_npz` reads the JAX `save_params_npz` file
+    leaf for leaf, an int8 decoder tree's dtypes included."""
+    from whisper_tpu.models.params import save_params_npz as jax_save
+    from whisper_tpu.quant import quantize_decoder
+
+    tree = {"dense": tpu_model.params, "int8": quantize_decoder(tpu_model.params["decoder"])}
+    path = str(tmp_path / "jax.npz")
+    jax_save(tree, path)
+    mine = whisper_tpu_torch.load_params_npz(path)
+    want, got = dict(_flat(tree)), dict(_flat(mine))
+    assert got.keys() == want.keys()
+    for key, leaf in want.items():
+        leaf = np.asarray(leaf)
+        assert got[key].dtype == leaf.dtype and np.array_equal(got[key], leaf), key
+    # and the port writes back the same file's leaves
+    again = str(tmp_path / "port.npz")
+    whisper_tpu_torch.save_params_npz(mine, again)
+    for key, leaf in dict(_flat(whisper_tpu_torch.load_params_npz(again))).items():
+        assert leaf.dtype == got[key].dtype and np.array_equal(leaf, got[key]), key

@@ -46,6 +46,28 @@ def test_transcribe_matches_jax(tpu_model, torch_model, jfk_audio, kw):
     _assert_same_transcript(mine, ref)
 
 
+@pytest.mark.parametrize(
+    "tile,kw",
+    [
+        (3, dict(beam_size=2, sample_len=100)),  # 100 tokens a row: half the file's time
+        (3, dict(condition_on_previous_text=False)),
+        (1, dict(task="translate")),
+        (1, dict(without_timestamps=True)),
+    ],
+    ids=["long-beam2", "long-unconditioned", "translate", "without-timestamps"],
+)
+def test_transcribe_options_match_jax(tpu_model, torch_model, jfk_audio, tile, kw, monkeypatch):
+    """Long form (33 s: two windows) at beam 2 and without conditioning on
+    the previous window's text, the translate task, and no timestamps."""
+    monkeypatch.setattr(tpu_model, "use_fused_decode", True, raising=False)
+    audio = np.tile(jfk_audio, tile)
+    ref = tpu_model.transcribe(audio, language="en", temperature=0.0, verbose=None, **kw)
+    mine = torch_model.transcribe(audio, language="en", temperature=0.0, verbose=None, **kw)
+    _assert_same_transcript(mine, ref)
+    if tile > 1:
+        assert mine["segments"][-1]["seek"] > 0  # the second window was decoded
+
+
 def test_transcribe_from_path_and_language_detection(tpu_model, torch_model, jfk_flac_path):
     ref = tpu_model.transcribe(jfk_flac_path, temperature=0.0, verbose=None)
     mine = whisper_tpu_torch.transcribe(torch_model, jfk_flac_path, temperature=0.0, verbose=None)

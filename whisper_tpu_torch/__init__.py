@@ -4,9 +4,11 @@ Public API: `load_model`, `save_model`, `available_models`, `transcribe`,
 `transcribe_batch`, `transcribe_chunked`, `StreamingTranscriber`,
 `ContinuousBatcher`, `decode`, `DecodingOptions`, `DecodingResult`,
 `detect_language`, `log_mel_spectrogram`, `pad_or_trim`, `load_audio`,
-`__version__`. The servers are `whisper_tpu_torch.server` (unix socket)
-and `whisper_tpu_torch.http_server` (HTTP); fine-tuning and draft
-distillation are `whisper_tpu_torch.finetune` and `whisper_tpu_torch.distill`.
+`save_params_npz`, `load_params_npz`, `__version__`. The servers are
+`whisper_tpu_torch.server` (unix socket) and `whisper_tpu_torch.http_server`
+(HTTP); fine-tuning and draft distillation are `whisper_tpu_torch.finetune`
+and `whisper_tpu_torch.distill`; `whisper_tpu_torch.config_matrix` runs the
+repo's five published configurations.
 Models run on the CUDA card unless the caller passes another device (the
 tests pass device="cpu").
 """
@@ -22,7 +24,12 @@ from .batch import transcribe_batch, transcribe_chunked
 from .continuous import ContinuousBatcher
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models.dims import MODEL_DIMS, ModelDimensions
-from .models.params import flatten_tree, load_params_npz, params_from_torch_state_dict
+from .models.params import (
+    flatten_tree,
+    load_params_npz,
+    params_from_torch_state_dict,
+    save_params_npz,
+)
 from .models.registry import ALIGNMENT_HEADS, available_models, download_checkpoint
 from .models.whisper import Whisper, resolve_device
 from .quant import check_weights_mode
@@ -45,6 +52,7 @@ __all__ = [
     "log_mel_spectrogram",
     "pad_or_trim",
     "save_model",
+    "save_params_npz",
     "StreamingTranscriber",
     "transcribe",
     "transcribe_batch",

@@ -263,6 +263,21 @@ def unflatten_tree(items) -> Dict:
     return tree
 
 
+def save_params_npz(params: Dict, path: str):
+    """Write a bare parameter tree as a flat '<a>/<b>/<leaf>' .npz (the JAX
+    package's `save_params_npz` format). Tensor leaves go to the host in
+    their dtype, bfloat16 as float32 (numpy has no bfloat16); numpy leaves
+    are written as they are."""
+
+    def host(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+
+    np.savez(path, **{key: host(leaf) for key, leaf in flatten_tree(params)})
+
+
 def load_params_npz(path: str) -> Dict:
     """A flat '<a>/<b>/<leaf>' .npz (the JAX package's format) as a nested
     dict of numpy arrays."""
