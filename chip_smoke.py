@@ -204,12 +204,20 @@ Phases (any failure raises and the script exits non-zero):
      save and load seconds), load_model of its directory decoding one
      window at T = 0 (a greedy launch a step); a turbo step's forward and
      backward with the stacked weights split by unbind and by select, in
-     turns; run_distill of the turbo target into a tiny-sized student at
-     batch 4, two of its four records pseudo-labeled by the target on the
-     card, then the student as the target's draft in transcribe() of jfk at
-     T = 0 (tokens against plain greedy reported in bf16, acceptance,
-     tokens a round); the greedy launches of these decodes count on the
-     main path;
+     turns; the eval phase: whisper_tpu_torch.spec_distill_eval at a cut
+     size (2 clips labeled by the target's captured greedy path, 8 distill
+     steps at batch 2 with one more record pseudo-labeled by the target,
+     K = 4 and 8, 1 timed trial): losses finite and falling, each label
+     equal to a second captured run's tokens, every line's acceptance in
+     [0, 1] with a round a row, the launches (rows 1b and 1c) equal to the
+     records; the distilled and random drafts' acceptance, speedup and bf16
+     token agreement reported; the greedy launches of these decodes count on
+     the main path;
+  eval tools. whisper_tpu_torch.eval_wer's --ref-dir form on jfk.flac against
+     the turbo model's own T = 0 transcript (overall WER 0.0000), and with
+     --weights int8 (reported); whisper_tpu_torch.validate_real --offline:
+     exit 0, every weight section skipped with a reason, the report read
+     back; the transcribes' launches count on the main path;
   parallel. the mesh (whisper_tpu_torch/parallel/), ranks spawned from
      here after the build (parallel/launch.py); the mesh's engines run the
      loop programs, with the collectives inside the body: (a) a world of
@@ -248,13 +256,16 @@ Phases (any failure raises and the script exits non-zero):
   export. torch.export, AOTInductor and the native runner
      (whisper_tpu_torch/export.py, runtime/aoti.py, csrc/wtt_transcribe.cpp,
      csrc/wtt_graph.cpp): the runner built with g++ while three pipelines
-     are exported and AOT-compiled at once (tiny float32, tiny int8, turbo
-     bf16, each with the step packages at the cache windows 128, 256 and
+     are exported and AOT-compiled (tiny float32 and tiny English-only
+     int8 at V = 51864 and sample_begin 1, and turbo bf16 at the main
+     path's weights, in a spawned process each, started with the build
+     after the card-vs-CPU comparisons so that they run beside the card's
+     phases; each with the step packages at the cache windows 128, 256 and
      448 that loop.txt names; each graph's export and cold-compile
      seconds, a second load of the turbo encoder from the package cache);
      at tiny dims on jfk the captured runner's tokens equal the captured
      engine's on the same mel bytes over 445 tokens, through every phase
-     (greedy and beam 5 at T = 0, int8 greedy, and the ladder's accepted
+     (greedy and beam 5 at T = 0, English-only int8 greedy, and the ladder's accepted
      draw at its temperature and seed), and a pipeline missing one package
      makes it exit non-zero; each turbo package against the same function
      run eagerly on the same inputs (max |diff| / max |ref|, step 0's
@@ -295,6 +306,7 @@ import copy
 import ctypes
 import dataclasses
 import importlib
+import io
 import json
 import multiprocessing
 import os
@@ -315,7 +327,7 @@ from whisper_tpu_torch import DecodingOptions, decode, load_audio, profiling, sa
 from whisper_tpu_torch import batch as batch_module  # noqa: E402
 from whisper_tpu_torch import transcribe_batch, transcribe_chunked  # noqa: E402
 from whisper_tpu_torch.decoding import DecodingTask  # noqa: E402
-from whisper_tpu_torch.engine import FusedEngine  # noqa: E402
+from whisper_tpu_torch.engine import FusedEngine, model_engine  # noqa: E402
 from whisper_tpu_torch.kernels import build  # noqa: E402
 from whisper_tpu_torch.models.dims import MODEL_DIMS, ModelDimensions  # noqa: E402
 from whisper_tpu_torch.models import graphs  # noqa: E402
@@ -341,6 +353,18 @@ EMPTY = {}  # the empty kernel's nvcc process ("nvcc"), then its library ("lib")
 
 def log(msg):
     print(msg, flush=True)
+
+
+def host_cpu() -> str:
+    """The host's CPU model and core count: the compiles and the CPU halves
+    of the card-against-CPU phases run on it, so the smoke's seconds vary
+    with it."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name")), "unknown")
+    except OSError:
+        model = "unknown"
+    return f"{model} x {os.cpu_count()}"
 
 
 def card_line() -> str:
@@ -3819,64 +3843,125 @@ def backward_ms(model, reps=2):
     }  # fmt: skip
 
 
-def distill_phase(model, jfk):
-    """run_distill of the turbo target into a student of tiny's size with
-    turbo's vocabulary and mels: 4 records (jfk with two texts, jfk and jfk
-    reversed without text, which pseudo_label transcribes with the target
-    at T = 0 on the card, the greedy kernel launched), batch 4, 4 steps at
-    lr 1e-3. The losses finite and falling; ce and kl, ms a step,
-    pseudo-labeling seconds a record, peak memory. Then the student,
-    loaded from its directory, is the target's draft: transcribe() of jfk
-    at T = 0 plainly and speculatively (tokens equal or not, reported in
-    bf16; acceptance, tokens a round). Returns (stats, launches of the
-    pseudo-labeling and of the two transcribe() runs)."""
-    from whisper_tpu_torch import distill as distill_module
-    from whisper_tpu_torch import load_model
-    from whisper_tpu_torch.checkpoint import load_checkpoint
+SPEC_EVAL = dict(ks=(4, 8), clips=2, steps=8, batch=2, trials=1)  # the tool's 16 clips, 400 steps at 8, 5 trials cut
 
-    records = train_records() + [{"audio": JFK_PATH}, {"audio": np.ascontiguousarray(jfk[::-1])}]
-    out_dir, clock, labeled = train_dir("distill"), StepClock(), {}
-    pseudo_label = distill_module.pseudo_label
+
+def eval_phase(model):
+    """spec_distill_eval.run at a cut size (SPEC_EVAL) on the turbo target
+    with a tiny-sized draft, the counts set to 0 before it: the clips
+    labeled by the captured engine (greedy at the loop state, row 1b),
+    run_distill over them and one unlabeled jfk record, which pseudo_label
+    transcribes with the target at T = 0; the plain captured engine and the
+    speculative round (per-row at the loop state, row 1c) with the
+    distilled and a random draft on a training clip and a held-out one.
+    Held: the losses finite and falling; each clip's label equal to a
+    second captured run's tokens; acceptance in [0, 1] and at least one
+    round a row on every line; the launches equal to the engines' records
+    (engine_want), rows 1b and 1c among them. Reported: the acceptances,
+    speedup_vs_fused, bf16 token agreement (near-ties may flip in bf16),
+    ms a distill step, each stage's seconds. Returns (stats, launches)."""
+    from whisper_tpu_torch import distill as distill_module
+    from whisper_tpu_torch import spec_distill_eval as sde
+    from whisper_tpu_torch import speculative
+
+    workdir, labeled, spec_engines = train_dir("spec_eval"), {}, []
+    pseudo_label, spec_engine = distill_module.pseudo_label, speculative.SpeculativeEngine
 
     def timed_label(*args, **kw):
         out, labeled["s"] = timed(lambda: pseudo_label(*args, **kw))
         return out
 
-    distill_module.pseudo_label = timed_label
+    class Recorded(spec_engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            spec_engines.append(self)
+
+    distill_module.pseudo_label, speculative.SpeculativeEngine = timed_label, Recorded
+    engine = model_engine(model)
+    engine.history.clear()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    lines = []
     try:
         t0 = time.perf_counter()
-        history = distill_module.run_distill(
-            model, "tiny", records, steps=4, batch_size=4, out_dir=out_dir, learning_rate=1e-3,
-            max_tokens=128, log=clock,
-        )  # fmt: skip
+        out = sde.run(model, "tiny", workdir=workdir, extra_records=[{"audio": JFK_PATH}], log=lambda *_: None,
+                      emit=lines.append, **SPEC_EVAL)  # fmt: skip
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     finally:
-        distill_module.pseudo_label = pseudo_label
+        distill_module.pseudo_label, speculative.SpeculativeEngine = pseudo_label, spec_engine
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    falling(history, "turbo -> tiny distillation")
-    if not counts["greedy_argmax"]:
-        raise AssertionError(f"pseudo-labeling launched no greedy kernel: {counts}")
-    draft = load_model(out_dir, device=DEV, compute_dtype=model.compute_dtype)
-    plain, plain_counts, plain_result = main_path(model, jfk, temperature=0.0)
-    spec, spec_counts, spec_result = main_path(model, jfk, draft=draft, temperature=0.0)
-    for k in counts:
-        counts[k] += plain_counts[k] + spec_counts[k]
-    tokens = [[t for s in r["segments"] for t in s["tokens"]] for r in (plain_result, spec_result)]
-    del draft
+    runs, spec = list(engine.history), [r for e in spec_engines for r in e.history]
+    if counts != engine_want(runs, spec=spec):
+        raise AssertionError(f"the eval's launches {counts} != its records' {engine_want(runs, spec=spec)}")
+    if not (counts["greedy_argmax_state"] and counts["greedy_argmax_rows_state"]) or not all(r.captured for r in runs + spec):
+        raise AssertionError(f"the eval did not run its captured loops through rows 1b and 1c: {counts}")
+    d = out["distill"]
+    falling(d["history"], "the eval's turbo -> tiny distillation")
+    for i, rec in enumerate(out["manifest"]):
+        again = sde.teacher_path_tokens(model, sde.synth_speech(sde.TRAIN_SEED + i))
+        if again != rec["tokens"] or len(again) != sde.SAMPLE_LEN:
+            raise AssertionError(f"clip {i}: its label and a second captured run part at {common_prefix(again, rec['tokens'])}")
+    for line in lines:
+        if line["K"] is not None and not (0.0 <= line["acceptance"] <= 1.0 and min(line["rounds"]) >= 1):
+            raise AssertionError(f"an eval line out of range: {line}")
     torch.cuda.empty_cache()
     return dict(
-        losses=history, ce=clock.field("ce"), kl=clock.field("kl"), step_ms=clock.step_ms(),
-        first_step_s=clock.steps()[0][1] - t0 - labeled["s"], pseudo_label_s=labeled["s"],
-        pseudo_label_s_per_record=labeled["s"] / 2, max_memory_allocated=peak,
-        draft_dims=load_checkpoint(out_dir)[1].__dict__,
-        spec_tokens_equal_bf16=tokens[0] == tokens[1],
-        spec_common_prefix=common_prefix(tokens[0], tokens[1]),
-        acceptance=spec["acceptance"], tokens_per_round=spec["tokens_per_round"],
-        plain_ms_per_token=plain["ms_per_token"], spec_ms_per_token=spec["ms_per_token"],
-        draft_steps=spec["draft_steps"], verify_rounds=spec["verify_rounds"],
+        seconds=seconds, labels_s=out["labels_s"], eval_s=out["eval_s"], pseudo_label_s=labeled["s"],
+        distill_s=d["seconds"], first_step_s=d["first_step_s"], step_ms=d["step_ms"], step_ms_p50=d["step_ms_p50"],
+        losses=d["history"], max_memory_allocated=peak, lines=lines, captures=sum(r.captures for r in runs + spec),
+        cut=f"{SPEC_EVAL} against the tool's 16 clips, 400 steps at batch 8, 5 trials",
     ), counts  # fmt: skip
+
+
+def eval_tools_phase(model, card):
+    """The evaluation tools on the turbo model, the counts set to 0 before
+    it: eval_wer's --ref-dir / --audio-dir form on jfk.flac, whose reference
+    is the model's own T = 0 transcript (overall WER 0.0000), then once more
+    with --weights int8 (its WER reported); validate_real --offline with its
+    report under smoke/_build/ (exit 0, every weight section skipped with a
+    reason, the report read back). Returns the launches of the transcribes."""
+    from whisper_tpu_torch import eval_wer, validate_real
+
+    t = time.perf_counter()
+    root = train_dir("eval_tools")
+    refs, audio = os.path.join(root, "refs"), os.path.join(root, "audio")
+    os.makedirs(refs)
+    os.makedirs(audio)
+    shutil.copy(JFK_PATH, os.path.join(audio, "jfk.flac"))
+    reset_launch_counts()
+    own = model.transcribe(JFK_PATH, language="en", temperature=0.0, verbose=None)["text"]
+    with open(os.path.join(refs, "jfk.txt"), "w") as f:
+        f.write(own)
+    args = ["--ref-dir", refs, "--audio-dir", audio, "--temperature", "0", "--device", "cuda"]
+    printed = {}
+    for weights in ("", "int8"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = eval_wer.main(args + ["--weights", weights], model=model)
+        overall = [ln for ln in buf.getvalue().splitlines() if ln.startswith("overall WER:")]
+        if rc != 0 or len(overall) != 1:
+            raise AssertionError(f"eval_wer {weights or 'bf16'}: exit {rc}, printed {buf.getvalue()!r}")
+        printed[weights or "bf16"] = overall[0]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not printed["bf16"].startswith("overall WER: 0.0000 "):
+        raise AssertionError(f"eval_wer against the model's own transcript: {printed['bf16']}")
+    report_path = os.path.join(root, "validate_real.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = validate_real.main(["--offline", "--device", "cuda", "--out", report_path])
+    with open(report_path) as f:
+        report = json.load(f)
+    sections = ("e2e_tests", "wer", "longform", "int8_wer_delta", "speculative_acceptance")
+    skipped = {s: report[s].get("reason") for s in sections if report[s]["status"] == "skipped"}
+    if rc != 0 or len(skipped) != len(sections) or not all(skipped.values()) or report["network"] is not False:
+        raise AssertionError(f"validate_real --offline: exit {rc}, report {report}")
+    log(json.dumps({"phase": "eval_tools", "seconds": time.perf_counter() - t, "own_transcript_chars": len(own),
+                    "eval_wer": printed, "validate_real": {"exit": rc, "skipped": skipped,
+                    "checkpoints": report["checkpoints"]}, "launches": counts, "card": card}))  # fmt: skip
+    return counts
 
 
 def matmul_grads(dims):
@@ -4024,16 +4109,16 @@ def train_profile(model):
 def train_phase(model, jfk, card):
     """The training slice: the Function's gradients, card against CPU at
     tiny dims, the turbo fine-tune with the backward's unbind / select
-    timing, the turbo distillation. Returns the launches of its decodes
-    (the counts set to 0 before each and read after it)."""
+    timing, the distilled-draft eval phase. Returns the launches of its
+    decodes (the counts set to 0 before each and read after it)."""
     t = time.perf_counter()
     log(json.dumps({"phase": "train_matmul_grads", **matmul_grads(model.dims)}))
     log(json.dumps({"phase": "train_card_vs_cpu", **train_card_vs_cpu()}))
     ft, ft_counts = finetune_phase(model, jfk)
     log(json.dumps({"phase": "train_finetune", **ft, "launches": ft_counts, "card": card}))
     log(json.dumps({"phase": "train_backward", **backward_ms(model), "card": card}))
-    dl, dl_counts = distill_phase(model, jfk)
-    log(json.dumps({"phase": "train_distill", **dl, "launches": dl_counts, "card": card}))
+    dl, dl_counts = eval_phase(model)
+    log(json.dumps({"phase": "train_spec_eval", **dl, "launches": dl_counts, "card": card}))
     counts = {k: ft_counts[k] + dl_counts[k] for k in ft_counts}
     if not counts["greedy_argmax"] or not counts["greedy_argmax_rows_state"]:
         raise AssertionError(f"the train phase launched a greedy kernel no time: {counts}")
@@ -4465,6 +4550,8 @@ def parallel_phase(audio, jfk, card):
 
 EXPORT_DIR = os.path.join(ROOT, "smoke", "_build", "export")
 EXPORT_TINY_DIMS = ModelDimensions(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+# the English-only layout (the gpt2 encoding: V = 51864, sample_begin 1) of the int8 pipeline
+EXPORT_TINY_EN_DIMS = ModelDimensions(80, 1500, 128, 2, 2, 51864, 448, 128, 2, 2)
 STEP_BEAM_SRC = (2, 0, 1, 4, 3)  # the reorder the turbo beam step is checked with
 
 
@@ -4754,105 +4841,147 @@ class RunnerCalls:
         return r
 
 
-def tiny_export_model():
-    """The tiny float32 model of the export phase (seeded weights)."""
-    return Whisper(EXPORT_TINY_DIMS, tiny_params(EXPORT_TINY_DIMS, seed=11), device="cuda",
-                   compute_dtype=torch.float32)  # fmt: skip
+def tiny_export_model(dims=EXPORT_TINY_DIMS, seed=11):
+    """A tiny float32 model of the export phase (seeded weights): the
+    multilingual one, or at EXPORT_TINY_EN_DIMS the English-only one. Both
+    take seed 11: their encoders' weights are then equal, so the two
+    pipelines' encoder archives are one compile; the English-only greedy
+    decode of jfk runs through every phase too."""
+    return Whisper(dims, tiny_params(dims, seed=seed), device="cuda", compute_dtype=torch.float32)
+
+
+def tiny_en_export_model():
+    return tiny_export_model(EXPORT_TINY_EN_DIMS)
 
 
 def export_tiny_pipelines(dirs, cache):
-    """Run in a spawned process: export the tiny float32 and int8 pipelines
-    and compile the packages the tiny checks and the tool's export load.
+    """Run in a spawned process: export the tiny float32 pipeline and the
+    tiny English-only int8 one (V = 51864, sample_begin 1, the gpt2 rank
+    file) and compile the packages the tiny checks and the tool's export
+    load.
     Returns (export s, compile wall s, [(export
     path, compile s, cached)])."""
     from whisper_tpu_torch.export import export_pipeline
     from whisper_tpu_torch.runtime.aoti import compile_graphs
 
-    os.nice(10)  # the turbo compile is the phase's longest path: it goes first on the cores
-    tiny = tiny_export_model()
+    os.nice(10)  # the card's phases go first on the cores
     t = time.perf_counter()
-    export_pipeline(dirs["tiny_f32"], tiny, compile=False)
-    export_pipeline(dirs["tiny_int8"], tiny, weights="int8", compile=False)
+    export_pipeline(dirs["tiny_f32"], tiny_export_model(), compile=False)
+    export_pipeline(dirs["tiny_en_int8"], tiny_en_export_model(), weights="int8", compile=False)
     export_s = time.perf_counter() - t
     # the int8 runner decodes greedy only: no beam step; the float32
     # packages are all compiled, the tool's export finds them cached
-    jobs = [os.path.join(dirs[d], f"{g}.export.pt2") for d in ("tiny_f32", "tiny_int8")
+    jobs = [os.path.join(dirs[d], f"{g}.export.pt2") for d in ("tiny_f32", "tiny_en_int8")
             for g in json.load(open(os.path.join(dirs[d], "timings.json")))
-            if not (d == "tiny_int8" and g.startswith("step_beam"))]  # fmt: skip
+            if not (d == "tiny_en_int8" and g.startswith("step_beam"))]  # fmt: skip
     t = time.perf_counter()
     results = compile_graphs(jobs, cache, workers=3)
     return export_s, time.perf_counter() - t, [(j, *r) for j, r in zip(jobs, results)]
 
 
-def export_and_check_tiny(model, t_phase, stack):
-    """Build the runner, export and AOT-compile the three pipelines, and
-    run the tiny checks, overlapping all of it with the turbo pipeline's
-    compile, which is the longest (its encoder): the runner's g++ build on a
-    thread; the tiny pipelines' exports and compiles in a spawned process;
-    the export tool started in a subprocess and the tiny checks run on a
-    thread as soon as the runner and the tiny packages are there (the tool
-    reads their compile cache; it goes on beside the turbo checks, and
-    export_tool_check reads it after them); the turbo pipeline through
-    export_pipeline here (it compiles by default on a card). The tool's
-    process is stopped when `stack` (an ExitStack) closes. Returns
-    (RunnerCalls, {pipeline: directory}, the tool's process
-    (export_tool_start), the tiny float32 greedy tokens)."""
+def export_turbo_pipeline(pdir, cache):
+    """Run in a spawned process: the turbo pipeline exported and
+    AOT-compiled (export_pipeline compiles on a card) from a model built as
+    the main path's (MODEL_DIMS["turbo"], seeded bf16 weights, seed 0), so
+    with its weights. Returns (export and compile s, weights_fingerprint)."""
     from whisper_tpu_torch.export import export_pipeline
+
+    os.nice(10)  # the card's phases go first on the cores
+    model = Whisper(MODEL_DIMS["turbo"], None, device="cuda", compute_dtype=torch.bfloat16, seed=0)
+    t = time.perf_counter()
+    export_pipeline(pdir, model, cache_dir=cache)
+    return time.perf_counter() - t, weights_fingerprint(model)
+
+
+def weights_fingerprint(model):
+    """Each weight's sum in float64: equal weights give equal sums."""
+    return [float(v.double().sum()) for _, v in flatten_tree(model.params)]
+
+
+def build_runner():
     from whisper_tpu_torch.runtime import build as runner_build
 
+    t = time.perf_counter()
+    return RunnerCalls(runner_build.build_runner()), time.perf_counter() - t
+
+
+def start_exports():
+    """Start the export phase's host work once the card-vs-CPU comparisons
+    are done, so that it runs beside the card's phases, not on the export
+    phase's path: the tiny pipelines (export_tiny_pipelines) and the turbo
+    pipeline (export_turbo_pipeline; its encoder's compile alone takes
+    ~240–250 s) in a spawned process each, and the runner's g++ build on a
+    thread. Returns the futures, the pools (which the export phase shuts
+    down), the pipelines' directories and the start time."""
     shutil.rmtree(EXPORT_DIR, ignore_errors=True)
     os.makedirs(EXPORT_DIR)
     cache = os.path.join(EXPORT_DIR, "cache")
-    dirs = {name: os.path.join(EXPORT_DIR, name) for name in ("tiny_f32", "tiny_int8", "turbo")}
-
-    def build_runner():
-        path = runner_build.build_runner()
-        return RunnerCalls(path), time.perf_counter() - t_phase
-
-    def check_tiny(exported, built):
-        exported.result()
-        tool = export_tool_start()
-        stack.callback(stop_process, tool[0])
-        runner, _ = built.result()
-        return tool, tiny_runner_checks(runner, tiny_export_model(), dirs, t_phase)
-
+    dirs = {name: os.path.join(EXPORT_DIR, name) for name in ("tiny_f32", "tiny_en_int8", "turbo")}
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ThreadPoolExecutor(2) as threads, \
-            concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as procs:  # fmt: skip
-        built = threads.submit(build_runner)
-        exported = procs.submit(export_tiny_pipelines, dirs, cache)
-        checked = threads.submit(check_tiny, exported, built)
-        t = time.perf_counter()
-        export_pipeline(dirs["turbo"], model, cache_dir=cache)
-        turbo_s = time.perf_counter() - t
-        (runner, build_s), (tiny_export_s, tiny_compile_s, results) = built.result(), exported.result()
-        tool, f32_greedy = checked.result()
+    tiny, turbo = (concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) for _ in range(2))
+    thread = concurrent.futures.ThreadPoolExecutor(1)
+    return dict(
+        tiny=tiny.submit(export_tiny_pipelines, dirs, cache),
+        turbo=turbo.submit(export_turbo_pipeline, dirs["turbo"], cache),
+        runner=thread.submit(build_runner), pools=(tiny, turbo, thread), dirs=dirs,
+        started=time.perf_counter(),
+    )  # fmt: skip
+
+
+def export_and_check_tiny(model, t_phase, stack, exports):
+    """Wait for the work start_exports began (`exports`: the runner, the
+    tiny pipelines, the turbo pipeline, whose weights must be `model`'s),
+    start the export tool in a subprocess (it reads the tiny packages'
+    compile cache and goes on beside the checks; export_tool_check reads
+    it after them), and run the tiny checks. The tool's process and the
+    pools are stopped when `stack` (an ExitStack) closes. Returns
+    (RunnerCalls, {pipeline: directory}, the tool's process
+    (export_tool_start), the tiny float32 greedy tokens)."""
+    for pool in exports["pools"]:
+        stack.callback(pool.shutdown)
+    dirs = exports["dirs"]
+    t = time.perf_counter()
+    runner, build_s = exports["runner"].result()
+    tiny_export_s, tiny_compile_s, results = exports["tiny"].result()
+    turbo_s, fingerprint = exports["turbo"].result()
+    wait_s = time.perf_counter() - t
+    if fingerprint != weights_fingerprint(model):
+        raise AssertionError("the turbo pipeline's weights are not the main path's")
+    tool = export_tool_start()
+    stack.callback(stop_process, tool[0])
     timings = {d: json.load(open(os.path.join(dirs[d], "timings.json"))) for d in dirs}
     for job, seconds, cached in results:
         d, name = os.path.basename(os.path.dirname(job)), os.path.basename(job).removesuffix(".export.pt2")
         timings[d][name].update(compile_s=seconds, cached=cached)
     log(json.dumps({"phase": "export_runtime", "part": "build_and_compile", "runner_build_s": build_s,
                     "tiny_export_s": tiny_export_s, "tiny_compile_wall_s": tiny_compile_s,
-                    "turbo_export_and_compile_s": turbo_s, "graphs": timings,
+                    "turbo_export_and_compile_s": turbo_s, "started_before_phase_s": t_phase - exports["started"],
+                    "wait_s": wait_s, "graphs": timings,
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
+    f32_greedy = tiny_runner_checks(runner, tiny_export_model(), tiny_en_export_model(), dirs, t_phase)
     return runner, dirs, tool, f32_greedy
 
 
-def tiny_runner_checks(runner, tiny, dirs, t_phase):
-    """Tiny float32 and int8 on jfk: the captured runner's tokens equal the
-    engine's on the same mel bytes (greedy, beam 5, int8 greedy, and the
-    ladder's accepted draw at its temperature and seed), the T = 0 decodes
-    running through all three phases (a capture each: past slots 128 and
-    256); a pipeline without one of its packages makes the runner exit
-    non-zero. Returns the float32 greedy tokens."""
+def tiny_runner_checks(runner, tiny, tiny_en, dirs, t_phase):
+    """Tiny float32 and English-only int8 on jfk: the captured runner's
+    tokens equal the engine's on the same mel bytes (greedy, beam 5, the
+    English-only int8 greedy at sample_begin 1 with the gpt2 rank file, and
+    the ladder's accepted draw at its temperature and seed), the T = 0
+    decodes running through all three phases (a capture each: past slots
+    128 and 256); the English-only transcript against the port tokenizer's
+    text of the same tokens (reported); a pipeline without one of its
+    packages makes the runner exit non-zero. Returns the float32 greedy
+    tokens."""
     from whisper_tpu_torch.runtime.native import decode_audio, log_mel_native
+    from whisper_tpu_torch.tokenizer import get_tokenizer
 
     jfk_mel = log_mel_native(decode_audio(JFK_PATH, 16000), 80, padding=480000)[:, :3000]
     out = {}
     one = ["--tokens", "--max-windows", "1"]
+    en_run = runner(dirs["tiny_en_int8"], JFK_PATH, *one, "--no-fallback")
     checks = [
         ("f32_greedy", runner(dirs["tiny_f32"], JFK_PATH, *one, "--no-fallback")["attempts"][0], False, ""),
-        ("int8_greedy", runner(dirs["tiny_int8"], JFK_PATH, *one, "--no-fallback")["attempts"][0], False, "int8"),
+        ("en_int8_greedy", en_run["attempts"][0], False, "int8"),
     ]  # fmt: skip
     # with --beam the ladder's T = 0 attempt is beam 5, the later ones draws;
     # every tiny T = 0 result fails the gates on jfk (avg logprob near -10),
@@ -4864,8 +4993,9 @@ def tiny_runner_checks(runner, tiny, dirs, t_phase):
         raise AssertionError(f"the tiny ladder accepted T = 0; no draw to check: {ladder[-1]}")
     checks.append(("f32_sampled", ladder[-1], False, ""))
     for label, a, beam, weights in checks:
-        pdir = dirs["tiny_int8" if weights else "tiny_f32"]
-        want, _ = engine_window(tiny, pdir, jfk_mel, beam, a["temperature"], a["seed"], weights)
+        pdir = dirs["tiny_en_int8" if weights else "tiny_f32"]
+        model = tiny_en if weights else tiny
+        want, _ = engine_window(model, pdir, jfk_mel, beam, a["temperature"], a["seed"], weights)
         if a["token_ids"] != want:
             raise AssertionError(f"tiny {label}: runner {a['token_ids'][:20]}... != engine {want[:20]}...")
         if a["temperature"] == 0 and a["captures"] != 3:
@@ -4874,6 +5004,13 @@ def tiny_runner_checks(runner, tiny, dirs, t_phase):
                           seed=a["seed"], ms_per_token=a["ms_per_token"], loop=a["loop"],
                           replays=a["replays"], captures=a["captures"])  # fmt: skip
     out["ladder_other_stderr"] = ladder_run["other_stderr"]
+    m = pipeline_manifest(dirs["tiny_en_int8"])
+    if (m["n_vocab"], m["sample_begin"], m["tiktoken"]) != ("51864", "1", "gpt2.tiktoken"):
+        raise AssertionError(f"the English-only pipeline's manifest: {m}")
+    en_tok = get_tokenizer(False)
+    en_text = en_tok.decode([t for t in en_run["attempts"][0]["token_ids"] if t < en_tok.eot])
+    out["en_int8_text"] = dict(chars=len(en_run["text"].strip()),
+                               equal_to_tokenizer=en_run["text"].strip() == en_text.strip())  # fmt: skip
 
     broken = os.path.join(EXPORT_DIR, "tiny_missing")
     shutil.copytree(dirs["tiny_f32"], broken)
@@ -5054,13 +5191,14 @@ def export_tool_check(runner, t_phase, started, want):
                     "since_phase_start_s": time.perf_counter() - t_phase}))  # fmt: skip
 
 
-def export_runtime_phase(model, jfk, card):
+def export_runtime_phase(model, jfk, card, exports):
     """Export, AOT-compile and run the native runner (tiny float32 and
-    int8, turbo bf16) and the one-command export tool. Returns the runner's
-    update launches."""
+    English-only int8, turbo bf16; the exports, compiles and the runner's
+    build that start_exports began) and the one-command export tool.
+    Returns the runner's update launches."""
     t_phase = time.perf_counter()
     with contextlib.ExitStack() as stack:
-        runner, dirs, tool, f32_greedy = export_and_check_tiny(model, t_phase, stack)
+        runner, dirs, tool, f32_greedy = export_and_check_tiny(model, t_phase, stack, exports)
         turbo_runner_checks(runner, model, jfk, dirs["turbo"], card, t_phase)
         export_tool_check(runner, t_phase, tool, f32_greedy)
     if not all(runner.launches.values()):
@@ -5107,7 +5245,7 @@ def run_phases():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu_name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {gpu_name}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {gpu_name} host {host_cpu()}")
     card = card_line()
 
     t = time.perf_counter()
@@ -5140,6 +5278,7 @@ def run_phases():
     clock("card_vs_cpu")
     log(json.dumps({"phase": "card_vs_cpu_en", **card_vs_cpu_en()}))
     clock("card_vs_cpu_en")
+    exports = start_exports()
     config_launches = configs_phase(card)
     clock("configs")
 
@@ -5229,6 +5368,8 @@ def run_phases():
     for k, v in train_phase(model, jfk, card).items():
         launches[k] = launches.get(k, 0) + v
     clock("train")
+    add_counts(launches, eval_tools_phase(model, card))
+    clock("eval_tools")
     add_counts(launches, parallel_phase(audio, jfk, card))
     clock("parallel")
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))
@@ -5241,7 +5382,7 @@ def run_phases():
     clock("loop_profiles")
     log(json.dumps({"phase": "train_profile", **train_profile(model), "card": card}))
     clock("train_profile")
-    add_counts(launches, export_runtime_phase(model, jfk, card))
+    add_counts(launches, export_runtime_phase(model, jfk, card, exports))
     clock("export_runtime")
     for name in kernels:
         if not launches.get(name) and name != "greedy_argmax_rows":

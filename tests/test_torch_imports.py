@@ -51,6 +51,8 @@ def test_import_without_jax():
         "import whisper_tpu_torch.runtime_config\n"
         "import whisper_tpu_torch.profiling, whisper_tpu_torch.export_pipeline\n"
         "import whisper_tpu_torch.config_matrix\n"
+        "import whisper_tpu_torch.spec_distill_eval, whisper_tpu_torch.eval_wer\n"
+        "import whisper_tpu_torch.validate_real\n"
         "assert (set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()) == built\n"
         "assert whisper_tpu_torch.runtime.native._lib is None  # the audio library is not loaded\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
@@ -175,6 +177,41 @@ def test_training_mains_default_to_cuda(tmp_path, synth_checkpoint, module):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([str(manifest), "--model", synth_checkpoint, "--out", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
+
+
+@pytest.mark.parametrize("module", ["spec_distill_eval", "eval_wer"])
+def test_eval_tool_mains_default_to_cuda(tmp_path, synth_checkpoint, jfk_flac_path, module):
+    """The evaluation tools load their model on the card unless --device
+    says otherwise: without one that is an error, before the distillation
+    eval writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid here")
+    import importlib
+
+    main = importlib.import_module(f"whisper_tpu_torch.{module}").main
+    if module == "spec_distill_eval":
+        args = ["--target", synth_checkpoint, "--workdir", str(tmp_path / "work")]
+    else:
+        (tmp_path / "refs").mkdir()
+        (tmp_path / "refs" / "jfk.txt").write_text("and so my fellow americans")
+        args = ["--ref-dir", str(tmp_path / "refs"), "--audio-dir", os.path.dirname(jfk_flac_path),
+                "--model", synth_checkpoint]  # fmt: skip
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
+    assert not os.path.exists(tmp_path / "work")
+
+
+def test_validate_real_defaults_to_cuda():
+    """The drill's model loads (the long-form and acceptance sections, the
+    eval_wer runs) take the card unless --device says otherwise."""
+    import inspect
+
+    from whisper_tpu_torch import validate_real
+
+    for fn in (validate_real.run_wer, validate_real.run_wer_int8_delta, validate_real.run_spec_acceptance,
+               validate_real.run_longform):  # fmt: skip
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    assert "--device" in validate_real.eval_wer_command("ls", "tiny.en", 1, "cuda")
 
 
 def test_make_mesh_defaults_to_cuda_and_nccl():
