@@ -127,14 +127,15 @@ Phases (any failure raises and the script exits non-zero):
      written by save_model; all five outputs of each file present, and the
      per-graph timing report in its stdout with the "encoder" and
      "fused_decode" spans;
-  layers. smoke/layers_ms.py in a fresh process (no profiler session run
-     in it): transcribe() of the 60 s clip at turbo width, greedy and beam
-     5 at T = 0, with profiling.set_sync(True): each span's summary, the
-     encoder + cross-K/V span, per window the engine's run (the
+  layers. smoke/layers_ms.py's measure() in this process, on the main
+     path's model (no second process and turbo load): transcribe() of the 60 s clip at turbo width, greedy and
+     beam 5 at T = 0, with profiling.set_sync(True): each span's summary,
+     the encoder + cross-K/V span, per window the engine's run (the
      fused_decode span) and its ms a step, and transcribe()'s wall less
      its spans; the clip's synchronized log-mel ms; the engine's ms a step
-     with sync off beside profiling disabled; one traced window, whose
-     Chrome trace must hold the greedy update kernel's events;
+     with sync off beside profiling disabled; one traced window
+     (profiling.trace()), whose Chrome trace must hold the greedy update
+     kernel's events; its times carry the profiler sessions run before;
   bf16_rows: one turbo bf16 window through encode, cross_kv, prefill, the
      logits and one decode_step at B = 1 and as row 0 of B = 4, beside
      three other audios and beside three copies of itself: per output the
@@ -170,17 +171,18 @@ Phases (any failure raises and the script exits non-zero):
      1e-3; a prefill and a step's logits reported); the speculative
      engine (a tiny-class draft with turbo's vocabulary and mels, K = 4)
      on one window (cut to 128 tokens with the random draft), its round
-     captured, uncaptured (the body run eagerly) and the eager host loop,
-     beside the plain captured engine, with a
-     random draft and with a one-token vocabulary (every draft accepted),
-     in bf16 and at float32: rounds, acceptance, tokens per round, ms per
-     token (plain and captured: the median of two runs after an untimed
-     one; the other two one run), replays, captures and their seconds,
-     launches checked on every run against its record (one scalar greedy
-     launch, then K + 2 per-row loop-state launches a round pass, or the
-     eager loop's per-row launch a draft step and a verify round); the
-     captured round's outputs equal the uncaptured body's, and at float32
-     its tokens equal the eager loop's and the plain engine's; one
+     captured and uncaptured (the body run eagerly), beside the plain
+     captured engine, with a random draft and with a one-token vocabulary
+     (every draft accepted), in bf16 and at float32, and the eager host
+     loop in the float32 random-draft bracket: rounds, acceptance, tokens
+     per round, ms per token (plain and captured: the median of two runs
+     after an untimed one; the body and the eager loop one run), replays,
+     captures and their seconds, launches checked on every run against its
+     record (one scalar greedy launch, then K + 2 per-row loop-state
+     launches a round pass, or the eager loop's per-row launch a draft
+     step and a verify round); the captured round's outputs equal the
+     uncaptured body's, and at float32 its tokens equal the eager loop's
+     and the plain engine's; one
      profiled captured run per draft (per replayed round: device-busy ms,
      its span and idle share, kernels; host ms of a replay and of a done
      read; the trace's greedy launches against the record); one more
@@ -218,6 +220,22 @@ Phases (any failure raises and the script exits non-zero):
      --weights int8 (reported); whisper_tpu_torch.validate_real --offline:
      exit 0, every weight section skipped with a reason, the report read
      back; the transcribes' launches count on the main path;
+  bench tools. the load and latency tools (whisper_tpu_torch/<tool>.py)
+     through their run() cores, the turbo model passed in, the counts set
+     to 0 before each: continuous_bench at 4 slots and 4 requests (its
+     captures, re-captures and program keys logged), throughput_bench at
+     two 30 s streams, beam 5, one trial, streaming_latency over 6 s,
+     soak_server with its synthetic model on the card (24 requests in
+     waves of 4 over the unix socket: errors 0, the drained server
+     empty), spec_bench at K = 4, one trial (accept1's acceptance 1.0;
+     where accept0's bf16 tokens part from the plain engine's, both within
+     the top three of a prefill's log-probs there), and on float32 models
+     (every speculative token the plain engine's, in both brackets),
+     graph_bench with 3 trials, trace_ops of the captured beam-5 decode, 2
+     iterations (device ops seen), and serve_bench at a world of one over
+     NCCL (dp 1, tp 1, two streams, one trial; its body captured, tokens
+     equal to the single engine's): each tool's seconds and launches, each
+     tool's kernel launched; the launches count on the main path;
   parallel. the mesh (whisper_tpu_torch/parallel/), ranks spawned from
      here after the build (parallel/launch.py); the mesh's engines run the
      loop programs, with the collectives inside the body: (a) a world of
@@ -293,8 +311,8 @@ Every launch check holds the update kernels' counts to what the engines'
 records say they launched (engine_want): a captured loop's step 0
 scalar, each replay and uncaptured pass at the loop state; a speculative
 run's step 0 scalar, K + 2 per-row loop-state launches a round pass; the
-host loops (5g's and the captured-loop phase's eager variants) once a step
-(per-row for the speculative one). The
+host loops (the captured-loop phase's and 5g's float32 eager variant) once
+a step (per-row for the speculative one). The
 loop-state launches are counted on the card by the kernels themselves (a
 replay makes no Python call).
 Exits non-zero, printing no result, where CUDA is not available.
@@ -337,6 +355,7 @@ from whisper_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from whisper_tpu_torch.ops import dtw, median  # noqa: E402
 from whisper_tpu_torch.quant import DECODER_QUANT_KEYS, quantize_cross_kv, quantize_decoder  # noqa: E402
 from whisper_tpu_torch.speculative import SpeculativeEngine  # noqa: E402
+from smoke.layers_ms import measure as layers_measure  # noqa: E402
 from smoke.trace_stats import busy_between_updates  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -375,10 +394,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def call_ms(fn, reps=REPS) -> float:
+def call_ms(fn, reps=REPS, warmup=5) -> float:
     """Median time of one call, host work included: CUDA events recorded
-    around each single call (warmed up)."""
-    for _ in range(5):
+    around each single call (after `warmup` calls)."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -391,15 +410,15 @@ def call_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS, kernel=None, attempts=3):
+def device_ms(fn, reps=REPS, kernel=None, attempts=3, warmup=5):
     """Device time per call from the profiler's CUDA kernel records: of the
-    kernels whose name contains `kernel`, or of every kernel the call ran.
-    Returns (ms per call, kernels per call). The profiler has, in rare runs,
-    kept no record of a short kernel at all; such a profile is taken again,
-    up to `attempts` times."""
+    kernels whose name contains `kernel`, or of every kernel the call ran,
+    after `warmup` calls. Returns (ms per call, kernels per call). The
+    profiler has, in rare runs, kept no record of a short kernel at all;
+    such a profile is taken again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
@@ -1442,7 +1461,10 @@ def check_dtw():
     launches alternating two inputs, compared after the last; device ms per
     shape; at the main path's largest shape (N = 252 tokens, M = 1500) the
     plain and per-call times, the empty kernel at the same launch shape and
-    the chain floor: N + M - 1 dependent steps on one thread."""
+    the chain floor: N + M - 1 dependent steps on one thread. The plain
+    version (1,751 host-driven steps at that shape, ~0.9 s a call) is timed
+    on one call after one warm-up each way: its calls, and the profiler's
+    records of ~10 kernels a step, are the check's cost."""
     per_shape = {}
     for seed, (N, M) in enumerate(DTW_SHAPES):
         for tied in (False, True):
@@ -1462,12 +1484,12 @@ def check_dtw():
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     chain_ms = chain_floor_ms(N + M - 1)
     return dict(
-        max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: dtw.dtw_trace_plain(x), reps=2)[0],
+        max_abs_err=0.0, ms=ms, plain_ms=device_ms(lambda: dtw.dtw_trace_plain(x), reps=1, warmup=1)[0],
         bound_ms=max(bytes_ms, chain_ms), bound_by="operations" if chain_ms > bytes_ms else "bytes",
         bytes_bound_ms=bytes_ms, chain_floor_ms=chain_ms,
         empty_ms=empty_grid_ms(1, 1, dtw_threads(N), dtw_smem_bytes(N)),
         call_ms=call_ms(lambda: dtw.dtw_trace(x), 20),
-        plain_call_ms=call_ms(lambda: dtw.dtw_trace_plain(x), 2), bytes=nbytes,
+        plain_call_ms=call_ms(lambda: dtw.dtw_trace_plain(x), 1, warmup=1), bytes=nbytes,
         steps=N + M - 1, device_ms_per_shape=per_shape, library_ms=None,
     )  # fmt: skip
 
@@ -2435,21 +2457,6 @@ def cli_phase():
     return dict(seconds=seconds, files=len(want), segments_a=segments, report=spans)
 
 
-def layers_phase():
-    """smoke/layers_ms.py in a fresh process (one that has run no profiler
-    session): the per-layer split of transcribe() at turbo width through
-    profiling.py. Returns its JSON line."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "smoke", "layers_ms.py")],
-        capture_output=True, text=True, cwd=ROOT, timeout=600,
-    )  # fmt: skip
-    if proc.returncode != 0:
-        raise AssertionError(f"layers_ms failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr[-4000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    return dict(line, seconds=time.perf_counter() - t0)
-
-
 # ---- bf16_rows: one window alone and as row 0 of a batch of four -----------
 
 
@@ -3036,7 +3043,9 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-SPEC_VARIANTS = ("captured", "body", "eager")
+SPEC_VARIANTS = ("captured", "body")
+# the eager host loop runs in the float32 random-draft bracket only
+SPEC_EAGER = SPEC_VARIANTS + ("eager",)
 # tokens of the random-draft brackets' window, whose uncaptured body and
 # eager loop take 23-43 ms a token; past 128 slots, so that spec_profile's
 # 24-token run (the 128-slot key) captures its own graph just before its
@@ -3055,15 +3064,15 @@ def spec_engine(model, draft, k, variant):
     return spec
 
 
-def spec_bracket(model, draft, window, only_token=None, k=4, reps=2, sample_len=None):
+def spec_bracket(model, draft, window, only_token=None, k=4, reps=2, sample_len=None, variants=SPEC_VARIANTS):
     """The plain captured engine and the speculative engine (draft `draft`,
-    K = k) on one greedy window at T = 0, its loop captured, uncaptured
-    (the round body run eagerly) and the eager host loop. The plain engine
-    and the captured round run once untimed (their graphs), then `reps`
-    timed runs each; the uncaptured body and the eager loop, dispatch-bound,
-    one timed run each; `sample_len` cuts the window (decode()'s default:
-    224 tokens). With `only_token`, every other id is suppressed and
-    timestamps are off: every draft is accepted (the upper bracket); else
+    K = k) on one greedy window at T = 0, its loop as each of `variants`
+    (spec_engine): captured, uncaptured (the round body run eagerly) and,
+    where asked, the eager host loop. The plain engine and the captured
+    round run once untimed (their graphs), then `reps` timed runs each; the
+    uncaptured body and the eager loop, dispatch-bound, one timed run each;
+    `sample_len` cuts the window (decode()'s default: 224 tokens). With
+    `only_token`, every other id is suppressed and timestamps are off: every draft is accepted (the upper bracket); else
     the window decodes as transcribe() would (timestamps on). The counts
     are set to 0 just before each timed run and must equal its record
     (engine_want). The captured round's outputs must equal the uncaptured
@@ -3080,7 +3089,7 @@ def spec_bracket(model, draft, window, only_token=None, k=4, reps=2, sample_len=
         kw = dict(kw, suppress_ids=[i for i in range(model.dims.n_vocab) if i != only_token],
                   blank_ids=[])  # fmt: skip
     _, dck, dcv = draft.encode_with_cross_kv(window[None])
-    engines = {"plain": FusedEngine(model), **{v: spec_engine(model, draft, k, v) for v in SPEC_VARIANTS}}
+    engines = {"plain": FusedEngine(model), **{v: spec_engine(model, draft, k, v) for v in variants}}
 
     def run(name):
         engine = engines[name]
@@ -3319,11 +3328,12 @@ def int8_card_vs_cpu(f32_model, audio):
 def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
     """5g. The decoder weight bytes of each weights mode (int8's loop
     profiles run beside phase 6's); the speculative engine (bf16 draft
-    `draft`) on one window, captured, uncaptured and the eager loop,
-    against the plain engine (spec_bracket), a random draft (the lower
-    bracket) and a one-token vocabulary (every draft accepted, the upper
-    bracket), in bf16 (the captured outputs equal the uncaptured body's)
-    and at float32 (tokens equal, the gate), and one profiled captured run
+    `draft`) on one window, captured and uncaptured (and the eager host
+    loop in the float32 random-draft bracket), against the plain engine
+    (spec_bracket), a random draft (the lower bracket) and a one-token
+    vocabulary (every draft accepted, the upper bracket), in bf16 (the
+    captured outputs equal the uncaptured body's) and at float32 (tokens
+    equal, the gate), and one profiled captured run
     per draft (spec_profile); transcribe() of the clip and a
     ContinuousBatcher(slots=2) round with a draft at float32, equal to the
     plain ones (the gate)."""
@@ -3346,10 +3356,11 @@ def int8_spec_phase(model, draft, f32_model, audio, jfk, card):
         full = -(-(stats["tokens"] - 1) // (stats["k"] + 1))  # every round K + 1 tokens
         if name == "all_accepted" and cap["rounds"] != full:
             raise AssertionError(f"the one-token vocabulary took {cap['rounds']} rounds, not {full}")
-        f32_stats, _ = spec_bracket(f32_model, f32_draft, first_window(f32_model, audio), **kw)
+        variants = SPEC_EAGER if name == "random_draft" else SPEC_VARIANTS
+        f32_stats, _ = spec_bracket(f32_model, f32_draft, first_window(f32_model, audio), variants=variants, **kw)
         log(json.dumps({"phase": "spec", "bracket": name, "dtype": "float32", **f32_stats,
                         "card": card}))  # fmt: skip
-        differ = [v for v in ("plain", *SPEC_VARIANTS) if not f32_stats[v]["tokens_equal_captured"]]
+        differ = [v for v in ("plain", *variants) if not f32_stats[v]["tokens_equal_captured"]]
         if differ:
             raise AssertionError(f"{name} at float32: the captured round's tokens differ from {differ}")
     log(json.dumps({"phase": "spec_brackets", "seconds": time.perf_counter() - t}))
@@ -3962,6 +3973,165 @@ def eval_tools_phase(model, card):
                     "eval_wer": printed, "validate_real": {"exit": rc, "skipped": skipped,
                     "checkpoints": report["checkpoints"]}, "launches": counts, "card": card}))  # fmt: skip
     return counts
+
+
+BENCH_TOOLS_KERNEL = {  # each tool's loop kernel on this phase's runs
+    "continuous_bench": "greedy_argmax_state", "throughput_bench": "beam_update_state",
+    "streaming_latency": "greedy_argmax_state", "soak_server": "greedy_argmax_state",
+    "spec_bench": "greedy_argmax_rows_state", "spec_bench_float32": "greedy_argmax_rows_state",
+    "graph_bench": "beam_update_state",
+    "trace_ops": "beam_update_state", "serve_bench": "beam_update_state",
+}  # fmt: skip
+
+
+def spec_parting(model, fused, spec):
+    """Where spec_bench's accept0 tokens part from the plain engine's, per
+    window (`fused`, `spec`: each window's decoded ids): the common prefix
+    and, given it, the target's filtered log-probs at the parting position
+    from one prefill over it (the bracket's filters and penalties, a third
+    shape of the same products): its top-two ids and gap, and each
+    engine's token's rank and log-prob. None for a window whose tokens are
+    equal."""
+    from whisper_tpu_torch import spec_bench
+    from whisper_tpu_torch.frontend import encode_clip
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(model.is_multilingual, num_languages=model.num_languages, language="en",
+                        task="transcribe")  # fmt: skip
+    kw = spec_bench.bracket_kwargs(tok, model.dims.n_vocab, spec_bench.SAMPLE_LEN)["accept0"]
+    ck, cv, _ = encode_clip(model, spec_bench.clip_audio(len(fused)))
+    pens = FusedEngine(model)._penalties(
+        kw["suppress_ids"], kw["blank_ids"], use_timestamps=kw["use_timestamps"],
+        no_timestamps=kw["no_timestamps"], timestamp_begin=kw["timestamp_begin"],
+        max_initial_ts_index=kw["max_initial_ts_index"],
+    )  # fmt: skip
+    filt = dict(use_timestamps=kw["use_timestamps"], eot=kw["eot"], timestamp_begin=kw["timestamp_begin"])
+    initial = list(tok.sot_sequence)
+    dec = model.params["decoder"]
+    out = []
+    for a, (f, sp) in enumerate(zip(fused, spec)):
+        p = common_prefix(f, sp)
+        if p >= min(len(f), len(sp)):
+            out.append(None)
+            continue
+        n = len(initial) + p
+        toks = torch.zeros((1, graphs.CACHE_SLOTS), dtype=torch.int32, device=DEV)
+        toks[0, :n] = torch.tensor(initial + list(f[:p]), dtype=torch.int32)
+        with torch.inference_mode():
+            hidden, _ = graphs.prefill(dec, toks[:, :n], n, ck[:, a : a + 1], cv[:, a : a + 1],
+                                       n_head=model.dims.n_text_head)  # fmt: skip
+            lg = graphs.hidden_to_logits(dec, hidden[:, n - 1])
+            lp = torch.log_softmax(bk.apply_filters(lg, toks, n, len(initial), *pens, **filt), dim=-1)[0]
+        top = lp.topk(2)
+        pair = (int(f[p]), int(sp[p]))
+        out.append(dict(
+            common_prefix=p, tokens=list(pair), top2=top.indices.tolist(),
+            top2_gap=(top.values[0] - top.values[1]).item(),
+            ranks=[int((lp > lp[t]).sum()) + 1 for t in pair], logprob_of_tokens=[lp[t].item() for t in pair],
+        ))  # fmt: skip
+    return out
+
+
+def bench_tools_phase(model, card):
+    """The load and latency tools (whisper_tpu_torch/<tool>.py) through
+    their run() cores on the turbo model, each at a cut size, the counts set
+    to 0 before each and read after it: each tool's seconds and launches,
+    and its loop kernel launched (BENCH_TOOLS_KERNEL; graph_bench's
+    alignment replay launches the median filter too). Held: the soak's
+    errors 0 and its drained server empty; spec_bench's accept1 at K = 4
+    accepting every draft (acceptance 1.0); trace_ops' trace holding device
+    ops; serve_bench's world of one over NCCL capturing its body, its tokens
+    the single engine's; spec_bench again on float32 models (turbo and its
+    draft), whose speculative tokens must equal the plain engine's in both
+    brackets; in bf16, where accept0's tokens part from the plain engine's,
+    both tokens within the top three of a prefill's filtered log-probs
+    there (spec_parting: a near-tie, not a row's logits mixed up). Logged:
+    the batcher's captures, re-captures and program keys; the bf16
+    parting. Returns the launches of all the tools."""
+    from whisper_tpu_torch import (
+        continuous_bench, graph_bench, serve_bench, soak_server, spec_bench, streaming_latency,
+        throughput_bench, trace_ops,
+    )  # fmt: skip
+
+    t_phase = time.perf_counter()
+    tools, total = {}, {}
+
+    def run(name, fn):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = launch_counts()
+        if not counts[BENCH_TOOLS_KERNEL[name]]:
+            raise AssertionError(f"{name} never launched {BENCH_TOOLS_KERNEL[name]}: {counts}")
+        tools[name] = {"seconds": seconds, "launches": {k: v for k, v in counts.items() if v}}
+        add_counts(total, counts)
+        return out
+
+    cont = run("continuous_bench", lambda: continuous_bench.run_serving_bench(model, 4, 4))
+    tools["continuous_bench"].update(
+        makespan_s=[cont["makespan_s"], cont["warm_pass"]["makespan_s"]],
+        latency_p95_s=[cont["latency_p95_s"], cont["warm_pass"]["latency_p95_s"]],
+        aggregate_rtfx=[cont["aggregate_rtfx"], cont["warm_pass"]["aggregate_rtfx"]],
+        captures=cont["captures_total"], recaptures=cont["recaptures_total"],
+        program_keys=cont["program_keys_total"],
+    )  # fmt: skip
+    tp = run("throughput_bench", lambda: throughput_bench.run(model, streams=2, seconds=30, trials=1))
+    tools["throughput_bench"].update(value=tp["value"], p50_batch_latency_s=tp["p50_batch_latency_s"],
+                                     recaptures=tp["recaptures"])  # fmt: skip
+    sl = run("streaming_latency", lambda: streaming_latency.run(model, 6))
+    tools["streaming_latency"].update(first_partial_s=sl["first_partial_s"], partials=sl["partials"],
+                                      partial_feed_p50_s=sl["partial_feed_p50_s"])  # fmt: skip
+    soak = run("soak_server", lambda: soak_server.run(soak_server.synthetic_model(DEV), 24, 2, 4))
+    if soak["errors"] or soak["ok"] != 24 or not soak["state_empty_after_drain"]:
+        raise AssertionError(f"the soak: {soak}")
+    tools["soak_server"].update({k: soak[k] for k in (
+        "ok", "errors", "state_empty_after_drain", "rss_start_mb", "rss_end_mb", "rss_growth_tail_mb_per_100req",
+        "device_mem_start_mb", "device_mem_end_mb", "device_mem_growth_tail_mb_per_100req")})  # fmt: skip
+    spec = run("spec_bench", lambda: spec_bench.run(model, spec_bench.draft_model(model, "tiny", DEV), ks=(4,),
+                                                    trials=1))  # fmt: skip
+    upper = next(r for r in spec["records"] if r["bracket"] == "accept1" and r["K"] == 4)
+    if upper["measured_acceptance"] != 1.0 or not upper["all_accepted"]:
+        raise AssertionError(f"spec_bench's accept1 at K = 4: {upper}")
+    spec_keys = ("engine", "bracket", "K", "p50_decode_s", "vs_fused", "measured_acceptance", "tokens_equal_fused",
+                 "captured")  # fmt: skip
+    tools["spec_bench"]["records"] = [{k: r[k] for k in spec_keys} for r in spec["records"]]
+    parting = spec_parting(model, spec["tokens"][("fused_greedy", "accept0", None)],
+                           spec["tokens"][("speculative", "accept0", 4)])  # fmt: skip
+    tools["spec_bench"]["accept0_parting"] = parting
+    if any(w and max(w["ranks"]) > 3 for w in parting):
+        raise AssertionError(f"spec_bench's bf16 accept0 parts from plain on no near-tie: {parting}")
+    f32 = Whisper(model.dims, None, name=model.name, device=DEV, compute_dtype=torch.float32, seed=0)
+    spec32 = run("spec_bench_float32", lambda: spec_bench.run(f32, spec_bench.draft_model(f32, "tiny", DEV),
+                                                              ks=(4,), trials=1))  # fmt: skip
+    del f32
+    tools["spec_bench_float32"]["records"] = [{k: r[k] for k in spec_keys} for r in spec32["records"]]
+    if not all(r["tokens_equal_fused"] for r in spec32["records"]):
+        raise AssertionError(f"spec_bench at float32: speculative tokens differ from plain: {spec32['records']}")
+    gb = run("graph_bench", lambda: graph_bench.run(model, trials=3))
+    if not tools["graph_bench"]["launches"].get("median_filter"):
+        raise AssertionError(f"graph_bench's alignment replay never launched the median filter: {tools}")
+    tools["graph_bench"].update(
+        steady_ms={k: v["steady_ms"] for k, v in gb["timings"].items()},
+        pct_of_roofline={k: v["pct_of_roofline"] for k, v in gb["roofline"].items()},
+    )  # fmt: skip
+    to = run("trace_ops", lambda: trace_ops.run(model, 2, "decode"))
+    if not to["device_ops"]:
+        raise AssertionError("trace_ops: the profiler captured no device op")
+    tools["trace_ops"].update(total_ms_per_iter=to["total_ms_per_iter"], by_category=to["by_category_ms_per_iter"])
+    opts = dict(model="turbo", compute_dtype="bfloat16", device_type="cuda", dp=1, tp=1, streams=2, beam=5,
+                steps=96, trials=1, skip_single=False)  # fmt: skip
+    sb = run("serve_bench", lambda: serve_bench.launch(opts, model=model))
+    if not (sb["sharded_captured"] and sb["tokens_equal_single"] and sb["backend"] == "nccl"):
+        raise AssertionError(f"serve_bench at a world of one: {dict(sb, tokens=None)}")
+    tools["serve_bench"].update(sharded_ms_per_step=sb["sharded_ms_per_step"],
+                                sharding_overhead_x=sb["sharding_overhead_x"])  # fmt: skip
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "bench_tools", "seconds": time.perf_counter() - t_phase, "tools": tools,
+                    "launches": total, "card": card}))  # fmt: skip
+    return total
 
 
 def matmul_grads(dims):
@@ -5255,13 +5425,15 @@ def run_phases():
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t}))
     log("\n".join(line for line in build.build_log.splitlines() if "Used" in line))
 
-    kernels = {
-        "greedy_argmax": check_greedy(), "greedy_argmax_rows": check_greedy_rows(),
-        "greedy_argmax_state": check_greedy_state(),
-        "greedy_argmax_rows_state": check_greedy_rows_state(), "beam_update": check_beam(),
-        "beam_update_state": check_beam_state(), "dtw_trace": check_dtw(),
-        "median_filter": check_median(),
-    }  # fmt: skip
+    kernels = {}
+    for name, check in [
+        ("greedy_argmax", check_greedy), ("greedy_argmax_rows", check_greedy_rows),
+        ("greedy_argmax_state", check_greedy_state), ("greedy_argmax_rows_state", check_greedy_rows_state),
+        ("beam_update", check_beam), ("beam_update_state", check_beam_state), ("dtw_trace", check_dtw),
+        ("median_filter", check_median),
+    ]:  # fmt: skip
+        t = time.perf_counter()
+        kernels[name] = dict(check(), seconds=time.perf_counter() - t)
     clock("kernels")
     log(json.dumps({"phase": "odd_vocab", "max_abs_err": check_odd_vocab()}))
     log(json.dumps({"phase": "layout_vocab", **check_layout_vocab()}))
@@ -5324,7 +5496,9 @@ def run_phases():
     clock("batch")
     log(json.dumps({"phase": "cli", **cli_phase()}))
     clock("cli")
-    log(json.dumps(layers_phase()))
+    t = time.perf_counter()
+    layers = layers_measure(model, audio)
+    log(json.dumps({"phase": "layers", **layers, "seconds": time.perf_counter() - t, "card": card}))
     clock("layers")
 
     log(json.dumps({"phase": "bf16_rows", **bf16_rows(model, audio), "card": card}))
@@ -5351,7 +5525,7 @@ def run_phases():
     ):
         raise AssertionError(f"streaming and serving launched a kernel no time: {serving}, 5e {batcher_counts}")
     # the per-row launch without the loop state is the host loop's, which
-    # no engine runs on its main path (5g's eager brackets compare with it)
+    # no engine runs on its main path (5g's float32 eager bracket compares with it)
     for name, n in launches.items():
         if n == 0 and name != "greedy_argmax_rows":
             raise AssertionError(f"the main path never launched {name}")
@@ -5370,6 +5544,8 @@ def run_phases():
     clock("train")
     add_counts(launches, eval_tools_phase(model, card))
     clock("eval_tools")
+    add_counts(launches, bench_tools_phase(model, card))
+    clock("bench_tools")
     add_counts(launches, parallel_phase(audio, jfk, card))
     clock("parallel")
     log(json.dumps({"phase": "replay_cross_kv", **replay_cross_kv(model), "card": card}))

@@ -53,6 +53,10 @@ def test_import_without_jax():
         "import whisper_tpu_torch.config_matrix\n"
         "import whisper_tpu_torch.spec_distill_eval, whisper_tpu_torch.eval_wer\n"
         "import whisper_tpu_torch.validate_real\n"
+        "import whisper_tpu_torch.throughput_bench, whisper_tpu_torch.continuous_bench\n"
+        "import whisper_tpu_torch.streaming_latency, whisper_tpu_torch.soak_server\n"
+        "import whisper_tpu_torch.spec_bench, whisper_tpu_torch.graph_bench\n"
+        "import whisper_tpu_torch.trace_ops, whisper_tpu_torch.serve_bench, whisper_tpu_torch.tool_common\n"
         "assert (set(os.listdir(BUILD_DIR)) if os.path.isdir(BUILD_DIR) else set()) == built\n"
         "assert whisper_tpu_torch.runtime.native._lib is None  # the audio library is not loaded\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
